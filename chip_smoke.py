@@ -8,10 +8,12 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 Phases, one or more lines each on stdout:
 
 1. env: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, and the nvcc build of csrc/hist.cu with its ptxas summary.
-2. kernels: each kernel (pt_fused_hist, pt_coverage) against its plain
-   PyTorch version on the card at the main path's shapes and beyond,
-   exact int64 equality, median times from CUDA events with L2 flushed.
+   versions, and the nvcc builds of csrc/hist.cu and csrc/group.cu (one
+   nvcc each, started together) with their ptxas summaries.
+2. kernels: each kernel (pt_fused_hist, pt_coverage, pt_ordered_growth,
+   pt_similarity) against its plain PyTorch version on the card at the
+   shapes of the paths below and beyond, exact int64 equality, median
+   times from CUDA events with L2 flushed.
 3. main path: `histgrowth -c all -H -q 0,0.5,1.0 -l 0,1,2` through
    panacus_torch's CLI on cuda, on the bench.make_graph graph at its
    default size (900k nodes, 3.6M edges, 90 haplotype groups, ~340 MB of
@@ -21,11 +23,19 @@ Phases, one or more lines each on stdout:
    are reset just before these two runs and read just after; both kernels
    must have run. The TSVs must equal the same commands run through the
    port on the CPU, and a small unmasked run must equal a numpy oracle.
+4. group path: on the same graph, `ordered-histgrowth -H -q 0,0.5,1
+   -l 1,1,2` with -c bp and -c edge, and `similarity -H` with -c node and
+   -c bp, on cuda. Launch counts are reset just before these four runs and
+   read just after: pt_ordered_growth must run at least 3 times per ordered
+   run and pt_similarity at least once per similarity run. Each TSV must
+   equal the port's run on the CPU; a small ordered run and a small
+   coverage table must equal numpy oracles.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}. Any failed phase exits
-non-zero without that line, as does a run without a CUDA device or
-outside a checkout. Generated graphs go to build/chip_smoke/.
+The line before the last is a JSON object with one entry per kernel (its
+launches are those of the path it belongs to); the last line is
+{"ok": true, "device": {...}}. Any failed phase exits non-zero without that
+line, as does a run without a CUDA device or outside a checkout. Generated
+graphs go to build/chip_smoke/.
 """
 
 from __future__ import annotations
@@ -44,10 +54,18 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 HISTGROWTH = ["histgrowth", "-c", "all", "-H", "-q", "0,0.5,1.0", "-l", "0,1,2"]
-KERNEL_SOURCE = "panacus_torch/csrc/hist.cu"
+ORDERED = ["ordered-histgrowth", "-H", "-q", "0,0.5,1", "-l", "1,1,2"]
+SOURCE = {
+    "pt_fused_hist": "panacus_torch/csrc/hist.cu",
+    "pt_coverage": "panacus_torch/csrc/hist.cu",
+    "pt_ordered_growth": "panacus_torch/csrc/group.cu",
+    "pt_similarity": "panacus_torch/csrc/group.cu",
+}
 REPLACES = {
     "pt_fused_hist": "panacus_tpu/ops/pallas_kernels.py:199",
     "pt_coverage": "panacus_tpu/ops/engine.py:152",
+    "pt_ordered_growth": "panacus_tpu/ops/engine.py:212",
+    "pt_similarity": "panacus_tpu/ops/engine.py:302",
 }
 
 
@@ -134,12 +152,15 @@ def phase_env():
         f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}"
     )
-    b = kernels.build()
-    ptxas = [l.strip() for l in b.log.splitlines() if "Used" in l]
-    print(
-        f"[env] nvcc build of {KERNEL_SOURCE}: {b.seconds:.3f} s "
-        f"({'built' if b.seconds else 'already built'}); ptxas: {ptxas}"
-    )
+    t0 = time.perf_counter()
+    builds = kernels.build_all()
+    print(f"[env] nvcc builds (one per source, in parallel): {time.perf_counter() - t0:.3f} s")
+    for source, b in builds.items():
+        ptxas = [l.strip() for l in b.log.splitlines() if "Used" in l]
+        print(
+            f"[env] nvcc build of {kernels.SOURCES[source]}: {b.seconds:.3f} s "
+            f"({'built' if b.seconds else 'already built'}); ptxas: {ptxas}"
+        )
 
 
 # (label, n_words, n_items_pad, n_groups, n_vecs, weights)
@@ -152,6 +173,33 @@ SHAPES = [
 MAIN_SHAPE = 1  # the largest M the main path hands the kernels
 
 
+def random_m(n_words, n_pad, n_groups, dev, g):
+    """Random membership bits for n_groups groups; the sentinel item is empty."""
+    import torch
+
+    M = torch.randint(
+        -(2**31), 2**31, (n_words, n_pad), dtype=torch.int32, device=dev, generator=g
+    )
+    if n_groups % 32:
+        M[-1] &= (1 << (n_groups % 32)) - 1
+    M[:, 0] = 0
+    return M
+
+
+def random_w(n_pad, style, dev, g):
+    """int32 item weights: all ones, bp-like node lengths 1-16, or anything
+    below 2^31; the sentinel weighs 0."""
+    import torch
+
+    if style == "ones":
+        w = torch.ones(n_pad, dtype=torch.int32, device=dev)
+    else:
+        hi = 17 if style == "bp" else 2**31
+        w = torch.randint(1, hi, (n_pad,), dtype=torch.int32, device=dev, generator=g)
+    w[0] = 0
+    return w
+
+
 def phase_kernels(dev):
     """Kernel vs plain version at each shape; returns per-kernel results."""
     import torch
@@ -161,16 +209,10 @@ def phase_kernels(dev):
     g = torch.Generator(device=dev)
     g.manual_seed(1)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    res = {name: {"max_abs_err": 0} for name in REPLACES}
+    res = {name: {"max_abs_err": 0} for name in ("pt_fused_hist", "pt_coverage")}
     for i, (label, n_words, n_pad, n_groups, n_vecs, wstyle) in enumerate(SHAPES):
         n_bins = n_groups + 2
-        M = torch.randint(
-            -(2**31), 2**31, (n_words, n_pad), dtype=torch.int32, device=dev,
-            generator=g,
-        )
-        if n_groups % 32:
-            M[-1] &= (1 << (n_groups % 32)) - 1
-        M[:, 0] = 0  # sentinel item
+        M = random_m(n_words, n_pad, n_groups, dev, g)
         if wstyle == "max31":
             W = torch.randint(
                 0, 2**31, (n_vecs, n_pad), dtype=torch.int32, device=dev,
@@ -213,6 +255,78 @@ def phase_kernels(dev):
             if i == MAIN_SHAPE:
                 res[name].update(ms=ms, plain_ms=plain_ms, at=f"{n_words}x{n_pad}")
         del M, W, got_h, want_h, got_c, want_c
+    return res
+
+
+# (label, n_words, n_items_pad, n_groups, weights, (quorum, c_min) pairs,
+#  whether similarity runs there)
+GROUP_SHAPES = [
+    ("node M of the group path", 3, 917_504, 90, "bp", [(0.0, 1), (0.5, 1), (1.0, 2)], True),
+    ("edge M of the group path", 3, 3_604_480, 90, "ones", [(0.0, 1), (0.5, 1), (1.0, 2)], True),
+    ("1024 groups", 32, 1 << 20, 1024, "max31", [(0.0, 1), (0.5, 2)], True),
+    ("4096 groups, items cut to 2^18", 128, 1 << 18, 4096, "max31", [(0.0, 1), (0.5, 2)], False),
+    ("4096 groups, items cut to 2^16", 128, 1 << 16, 4096, "max31", [], True),
+]
+# the shapes whose times go into the kernels line: the largest M that the
+# group path hands each kernel (ordered -c edge; similarity -c node|bp)
+GROUP_MAIN = {"pt_ordered_growth": (1, (0.5, 1)), "pt_similarity": (0, None)}
+
+
+def phase_group_kernels(dev):
+    """pt_ordered_growth and pt_similarity against their plain versions,
+    exact; returns per-kernel results."""
+    import numpy as np
+    import torch
+
+    from panacus_torch.ops import group_kernels as gk
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    res = {name: {"max_abs_err": 0} for name in GROUP_MAIN}
+
+    def check(name, label, got, want, fn, plain, key, reps):
+        err = int((got - want).abs().max()) if got.numel() else 0
+        if err or not torch.equal(got, want):
+            fail(f"{name} {label} {key}: kernel != plain (max abs err {err})")
+        ms, plain_ms = time_ms(fn, reps, flush), time_ms(plain, 3, flush)
+        print(
+            f"[kernels] {name} {label} {key}: exact; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms"
+        )
+        return ms, plain_ms
+
+    for i, (label, n_words, n_pad, n_groups, wstyle, qcs, sim) in enumerate(GROUP_SHAPES):
+        M = random_m(n_words, n_pad, n_groups, dev, g)
+        w = random_w(n_pad, wstyle, dev, g)
+        label = f"{label} ({n_words} x {n_pad}, {n_groups} groups, {wstyle} weights)"
+        for q, c in qcs:
+            thr_np = np.ceil(np.arange(1, n_groups + 1) * q).astype(np.int32)
+            thr = torch.from_numpy(thr_np).to(dev)
+            got = gk.ordered_growth(M, w, thr, c)
+            want = gk.ordered_growth_ref(M, w, thr, c)
+            torch.cuda.synchronize()
+            t = check(
+                "pt_ordered_growth", label, got, want,
+                lambda: gk.ordered_growth(M, w, thr, c),
+                lambda: gk.ordered_growth_ref(M, w, thr, c),
+                f"q={q} c={c}", 10,
+            )
+            if GROUP_MAIN["pt_ordered_growth"] == (i, (q, c)):
+                res["pt_ordered_growth"].update(
+                    ms=t[0], plain_ms=t[1], at=f"{n_words}x{n_pad} q={q} c={c}"
+                )
+        if sim:
+            got, want = gk.similarity(M, w), gk.similarity_ref(M, w)
+            torch.cuda.synchronize()
+            t = check(
+                "pt_similarity", label, got, want,
+                lambda: gk.similarity(M, w), lambda: gk.similarity_ref(M, w),
+                "", 5,
+            )
+            if GROUP_MAIN["pt_similarity"][0] == i:
+                res["pt_similarity"].update(ms=t[0], plain_ms=t[1], at=f"{n_words}x{n_pad}")
+        del M, w
     return res
 
 
@@ -293,6 +407,7 @@ def phase_main_path(dev):
     )
     if counts_unmasked["pt_fused_hist"] < 2:
         fail("histgrowth -c all launched pt_fused_hist fewer than 2 times")
+    launches = {name: launches[name] for name in ("pt_fused_hist", "pt_coverage")}
     for name, n in launches.items():
         if n < 1:
             fail(f"{name} was not launched on the main path")
@@ -317,6 +432,119 @@ def phase_main_path(dev):
     return launches
 
 
+def check_ordered_table(out: str, n_groups: int, n_thresholds: int, what: str) -> str:
+    """The ordered-histgrowth TSV body: 4 header rows, one row per group of
+    n_thresholds finite values; the quorum-0 coverage-1 column (the first)
+    never decreases."""
+    body, rows = table(out)
+    if len(rows) != 4 + n_groups or any(len(r) != 1 + n_thresholds for r in rows):
+        fail(f"{what} TSV has an unexpected shape ({len(rows)} rows)")
+    vals = [[float(x) for x in r[1:]] for r in rows[4:]]
+    if not all(math.isfinite(v) for r in vals for v in r):
+        fail(f"{what}: non-finite ordered growth value")
+    first = [r[0] for r in vals]
+    if first != sorted(first) or first[-1] <= 0:
+        fail(f"{what}: the quorum-0 ordered growth is not a growing curve")
+    return body
+
+
+def check_similarity_table(out: str, n_groups: int, what: str) -> str:
+    """The similarity TSV body: a symmetric n_groups x n_groups matrix of
+    values in [0, 1] with ones on the diagonal."""
+    import numpy as np
+
+    body, rows = table(out)
+    if len(rows) != 1 + n_groups or any(len(r) != 1 + n_groups for r in rows):
+        fail(f"{what} TSV has an unexpected shape ({len(rows)} rows)")
+    S = np.array([[float(x) for x in r[1:]] for r in rows[1:]])
+    if not (np.all(S >= 0) and np.all(S <= 1) and np.array_equal(S, S.T)):
+        fail(f"{what}: not a symmetric matrix of values in [0, 1]")
+    if not np.all(np.diagonal(S) == 1):
+        fail(f"{what}: the diagonal is not 1")
+    return body
+
+
+def phase_group_path(dev):
+    """Drive the group path on cuda; check it against cpu and oracles.
+
+    ordered-histgrowth (-c bp and -c edge) and similarity (-c node and -c
+    bp) on the full-size graph with 90 haplotype groups. Every ordered run
+    sets its order, which builds the abaci a second time (as panacus_tpu
+    does): the phase order_change times that second build."""
+    import numpy as np
+
+    import __graft_entry__
+    import bench
+    from panacus_torch.ops import kernels
+
+    gfa = bench_graph()
+    runs = [
+        ("ordered-histgrowth -c bp", ORDERED + ["-c", "bp", gfa]),
+        ("ordered-histgrowth -c edge", ORDERED + ["-c", "edge", gfa]),
+        ("similarity -c node", ["similarity", "-H", "-c", "node", gfa]),
+        ("similarity -c bp", ["similarity", "-H", "-c", "bp", gfa]),
+    ]
+    mb = os.path.getsize(gfa) / 1e6
+    kernels.reset_launches()
+    outs = []
+    for what, argv in runs:
+        before = dict(kernels.launches)
+        out, ph, wall = drive(argv, "cuda")
+        delta = {k: kernels.launches[k] - before[k] for k in kernels.launches}
+        outs.append((what, argv, out, delta))
+        print(
+            f"[group] {what} -H on cuda: {mb:.1f} MB of GFA in {wall:.3f} s; "
+            f"phases (s): index {ph.get('index', 0):.3f}, abacus builds "
+            f"{ph.get('abaci_by_total', 0):.3f}, of which the order change's "
+            f"second finish() {ph.get('order_change', 0):.3f}, ordered growth "
+            f"{ph.get('ordered_growth', 0):.3f}, similarity "
+            f"{ph.get('similarity', 0):.3f}; launches {delta}"
+        )
+    launches = dict(kernels.launches)
+    for what, argv, out, delta in outs:
+        if what.startswith("ordered") and delta["pt_ordered_growth"] < 3:
+            fail(f"{what} launched pt_ordered_growth fewer than 3 times")
+        if what.startswith("similarity") and delta["pt_similarity"] < 1:
+            fail(f"{what} did not launch pt_similarity")
+        if what.startswith("ordered"):
+            body = check_ordered_table(out, bench.N_PATHS, 3, what)
+        else:
+            body = check_similarity_table(out, bench.N_PATHS, what)
+        t0 = time.perf_counter()
+        if body != table(drive(argv, "cpu")[0])[0]:
+            fail(f"{what} TSV on cuda differs from the port's run on cpu")
+        print(f"[group] {what}: cuda TSV == cpu TSV (cpu run {time.perf_counter() - t0:.3f} s)")
+
+    small = os.path.join(WORK, "dryrun.gfa")
+    visits, lens, edges = __graft_entry__._write_dryrun_gfa(small)
+    node_mem, *_ = __graft_entry__._oracle(visits, lens, edges)
+    qc = [(0.0, 1), (0.0, 2), (0.5, 1)]
+    argv = ["ordered-histgrowth", "-c", "node", "-S", "-q", "0,0,0.5", "-l", "1,2,1", small]
+    _, rows = table(drive(argv, "cuda")[0])
+    got = np.array([[float(x) for x in r[1:]] for r in rows[4:]])
+    w1 = np.ones(node_mem.shape[1], dtype=np.int64)
+    w1[0] = 0
+    want = np.stack(
+        [__graft_entry__._oracle_ordered(node_mem, w1, c, q) for q, c in qc], axis=1
+    )
+    if not np.array_equal(got, want):
+        fail(f"small ordered-histgrowth on cuda != numpy oracle:\n{got}\n{want}")
+    print("[group] small ordered-histgrowth -c node -S on cuda == numpy oracle")
+
+    argv = ["table", "-c", "node", "-S", small]
+    body, rows = table(drive(argv, "cuda")[0])
+    if body != table(drive(argv, "cpu")[0])[0]:
+        fail("table TSV on cuda differs from the port's run on cpu")
+    counts = np.zeros((__graft_entry__.N_SAMPLES, node_mem.shape[1]), dtype=np.int64)
+    for p, v in enumerate(visits):
+        counts[p // 2, v] += 1
+    got = np.array([[int(x) for x in r[1:]] for r in rows[1:]])
+    if not np.array_equal(got, counts[:, 1:].T):
+        fail("small table -c node -S != numpy oracle")
+    print("[group] small table -c node -S on cuda == cpu == numpy oracle")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "panacus_torch")):
         fail("panacus_torch not found: run from the root of a checkout")
@@ -328,7 +556,11 @@ def main() -> int:
     dev = torch.device("cuda")
     phase_env()
     res = phase_kernels(dev)
+    res.update(phase_group_kernels(dev))
     launches = phase_main_path(dev)
+    group_launches = phase_group_path(dev)
+    for name in ("pt_ordered_growth", "pt_similarity"):
+        launches[name] = group_launches[name]
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
     print(
@@ -338,7 +570,7 @@ def main() -> int:
                     {
                         "name": name,
                         "route": "cuda",
-                        "source": KERNEL_SOURCE,
+                        "source": SOURCE[name],
                         "replaces": REPLACES[name],
                         "launches": launches[name],
                         **r,

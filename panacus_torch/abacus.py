@@ -1,9 +1,10 @@
-"""Total coverage abacus on the port's engine.
+"""Coverage abaci on the port's engine.
 
-Port of panacus_tpu/abacus.py: AbacusByTotal and construct_hists, plus the
-host helpers path_order_groups, build_membership_host and
-quantify_uncovered_bps, copied because importing panacus_tpu.abacus starts
-JAX. (reference: src/graph_broker/abacus.rs:476-788, 1187-1229)
+Port of panacus_tpu/abacus.py: AbacusByTotal, construct_hists and
+AbacusByGroup, plus the host helpers path_order_groups,
+build_membership_host and quantify_uncovered_bps, copied because importing
+panacus_tpu.abacus starts JAX. Both abaci read one packed membership
+matrix on a CountingEngine. (reference: src/graph_broker/abacus.rs:476-1229)
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from panacus_tpu.gfa import GraphStorage, ItemTable, PathSegment
 from panacus_tpu.itemize import ItemizeResult
 from panacus_tpu.mask import GraphMask
-from panacus_tpu.utils import ActiveTable, CountType, IntervalContainer
+from panacus_tpu.utils import ActiveTable, CountType, IntervalContainer, Threshold
 
 from .ops.engine import CountingEngine
 from .runtime import effective_threads
@@ -210,3 +211,238 @@ def construct_hists(abaci: "Dict[CountType, AbacusByTotal]"):
                 h = abaci[ct]._finish_hist_bps(h)
             hists[ct] = h
     return hists
+
+
+class AbacusByGroup:
+    """Group-resolved coverage on the same membership matrix
+    (reference: abacus.rs:790-1179). Group ids follow the mask's path order;
+    ordered growth and similarity run on the engine, the table export
+    resolves the sparse multiplicities on the host."""
+
+    def __init__(
+        self,
+        count: CountType,
+        engine: CountingEngine,
+        groups: List[str],
+        uncovered_bps: Dict[int, int],
+        graph: GraphStorage,
+        itemized: ItemizeResult,
+        slot: int,
+        path_order: List[Tuple[int, int]],
+    ):
+        self.count = count
+        self.engine = engine
+        self.groups = groups
+        self.uncovered_bps = uncovered_bps
+        self._graph = graph
+        # kept for the multiplicity export (table analysis only)
+        self._itemized = itemized
+        self._slot = slot
+        self._path_order = path_order
+        self._sparse_cache: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
+
+    @classmethod
+    def from_itemization(
+        cls,
+        count: CountType,
+        slot: int,
+        itemized: ItemizeResult,
+        path_order: List[Tuple[int, int]],
+        groups: List[str],
+        graph: GraphStorage,
+        device: torch.device,
+    ) -> "AbacusByGroup":
+        total = AbacusByTotal.from_itemization(
+            count, slot, itemized, path_order, groups, graph, device
+        )
+        return cls(
+            count, total.engine, groups, total.uncovered_bps, graph, itemized,
+            slot, path_order,
+        )
+
+    def _weights(self) -> np.ndarray:
+        """Per-item growth weight: 1 for node/edge, covered bp for bp
+        (reference: abacus.rs:1010-1026)."""
+        n = self.engine.n_items
+        if self.count == CountType.BP:
+            w = self._graph.node_lens[: n + 1].astype(np.int64)
+            for sid, uncov in self.uncovered_bps.items():
+                covered = int(w[sid])
+                if uncov > covered:
+                    log.error(
+                        "oops, #uncovered bps (%d) is larger than #covered bps "
+                        "(%d) for node with sid %d",
+                        uncov,
+                        covered,
+                        sid,
+                    )
+                    w[sid] = 0
+                else:
+                    w[sid] = covered - uncov
+        else:
+            w = np.ones(n + 1, dtype=np.int64)
+        w[0] = 0
+        return w
+
+    def calc_growth(self, t_coverage: Threshold, t_quorum: Threshold) -> List[float]:
+        """Ordered growth curve (reference: abacus.rs:988-1032)."""
+        n_groups = len(self.groups)
+        c = max(1, t_coverage.to_absolute(n_groups))
+        q = max(0.0, t_quorum.to_relative(n_groups))
+        res = self.engine.ordered_growth(self._weights(), q, c)
+        return [float(x) for x in res]
+
+    def similarity_matrix(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(intersections[G, G], sizes[G]) weighted by node length for bp
+        (reference: src/analyses/similarity.rs:119-163). The bp weights go
+        through float32 as in panacus_tpu (abacus.py:355-361), so node
+        lengths above 2^24 round the same way there and here."""
+        n = self.engine.n_items
+        if self.count == CountType.BP:
+            w = self._graph.node_lens[: n + 1].astype(np.float32).astype(np.int64)
+        else:
+            w = np.ones(n + 1, dtype=np.int64)
+        w[0] = 0
+        inter = self.engine.similarity(w)
+        sizes = np.diagonal(inter).copy()
+        return inter, sizes
+
+    def sparse_counts(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(items, group_ids, multiplicities) of the occurrence matrix, items
+        ascending and groups in path order within an item: the CSC (r, c, v)
+        equivalent for the table export (reference: compute_column_values
+        abacus.rs:901-986). One group at a time (a dense bincount each), so
+        the peak extra memory is one group's visits plus the nonzeros."""
+        if self._sparse_cache is not None:
+            return self._sparse_cache
+        n_groups = len(self.groups)
+        table = self._itemized.item_tables[self._slot]
+        ex = self._itemized.exclude_tables[self._slot]
+        n_items = self.engine.n_items
+        paths_by_group: List[List[int]] = [[] for _ in range(n_groups)]
+        for pid, gi in self._path_order:
+            paths_by_group[gi].append(pid)
+        excluded = np.flatnonzero(ex.items) if ex is not None else None
+        per_group: List[Tuple[int, np.ndarray, np.ndarray]] = []
+        row_counts = np.zeros(n_items + 2, dtype=np.int64)
+        for gi, pids in enumerate(paths_by_group):
+            slices = [s for s in map(table.path_slice, pids) if len(s)]
+            if not slices:
+                continue
+            visits = slices[0] if len(slices) == 1 else np.concatenate(slices)
+            cnt = np.bincount(visits, minlength=n_items + 1)
+            if excluded is not None and len(excluded):
+                cnt[excluded] = 0
+            cnt[0] = 0
+            nz = np.flatnonzero(cnt)
+            if not len(nz):
+                continue
+            per_group.append((gi, nz, cnt[nz].astype(np.int64)))
+            row_counts[nz + 1] += 1
+        if not per_group:
+            z = np.zeros(0, dtype=np.int64)
+            return z, z.copy(), z.copy()
+        # counting placement instead of a global sort: each group's nonzero
+        # list is item-sorted with unique items, so ptr[nz] places the
+        # (item, group) runs row-major with groups in path order per item
+        ptr = np.cumsum(row_counts)[:-1]
+        nnz = int(ptr[-1] + row_counts[-1])
+        items = np.empty(nnz, dtype=np.int64)
+        group_ids = np.empty(nnz, dtype=np.int64)
+        counts = np.empty(nnz, dtype=np.int64)
+        for gi, nz, c in per_group:
+            pos = ptr[nz]
+            items[pos] = nz
+            group_ids[pos] = gi
+            counts[pos] = c
+            ptr[nz] += 1
+        self._sparse_cache = (items, group_ids, counts)
+        return self._sparse_cache
+
+    def to_tsv(self, total: bool, graph: GraphStorage) -> str:
+        """Full or total coverage table (reference: abacus.rs:1056-1178), in
+        chunks of dense rows scattered from the sparse counts and formatted
+        by the threaded native formatter (a Python formatter without it)."""
+        from panacus_tpu.native import format_table
+
+        log.info("reporting coverage table")
+        n_groups = len(self.groups)
+        items, group_ids, counts = self.sparse_counts()
+        n_items = self.engine.n_items
+        starts = np.searchsorted(items, np.arange(1, n_items + 2))
+
+        head = "node" if self.count in (CountType.NODE, CountType.BP) else "edge"
+        header = head + (
+            "\ttotal" if total else "".join(f"\t{g}" for g in self.groups)
+        ) + "\n"
+
+        # per-item bp multiplier (covered bp for bp counts, else 1)
+        if self.count == CountType.BP:
+            bp = self._graph.node_lens[: n_items + 1].astype(np.int64)
+            for sid, unc in self.uncovered_bps.items():
+                bp[sid] -= unc
+        else:
+            bp = None
+
+        body: List[bytes] = []
+        CHUNK = 1 << 16
+        dense = None if total else np.zeros((CHUNK, n_groups), dtype=np.int64)
+        for lo in range(1, n_items + 1, CHUNK):
+            hi = min(lo + CHUNK, n_items + 1)
+            n_rows = hi - lo
+            a, b = starts[lo - 1], starts[hi - 1]
+            if total:
+                vals = np.diff(starts[lo - 1 : hi]).reshape(-1, 1)
+            else:
+                # each present group gets its multiplicity (x bp for bp
+                # counts); the reference's edge branch (abacus.rs:1164)
+                # mis-indexes v by group id; this emits the evidently
+                # intended per-slot multiplicity, as panacus_tpu does
+                mult = counts[a:b]
+                if bp is not None:
+                    mult = mult * bp[items[a:b]]
+                vals = dense[:n_rows]
+                vals[items[a:b] - lo, group_ids[a:b]] = mult
+            ids = np.arange(lo, hi, dtype=np.int64)
+            names = (
+                graph.node_names_fixed(ids)
+                if head == "node"
+                else graph.edge_names_fixed(ids)
+            )
+            blob = format_table(vals, names, effective_threads())
+            if blob is None:
+                return header + self._to_tsv_rows_python(
+                    total, graph, items, group_ids, counts, starts, bp
+                )
+            body.append(blob)
+            if not total:
+                # clear only the cells this chunk scattered (buffer reuse)
+                vals[items[a:b] - lo, group_ids[a:b]] = 0
+        return header + b"".join(body).decode("utf-8")
+
+    def _to_tsv_rows_python(
+        self, total, graph, items, group_ids, counts, starts, bp
+    ) -> str:
+        """Row formatter for hosts without the native library."""
+        n_groups = len(self.groups)
+        name_of = (
+            graph.node_name
+            if self.count in (CountType.NODE, CountType.BP)
+            else graph.edge_name
+        )
+        out: List[str] = []
+        for i in range(1, self.engine.n_items + 1):
+            a, b = starts[i - 1], starts[i]
+            out.append(name_of(i))
+            if total:
+                out.append(f"\t{b - a}\n")
+                continue
+            row = np.zeros(n_groups, dtype=np.int64)
+            mult = counts[a:b]
+            if bp is not None:
+                mult = mult * bp[i]
+            row[group_ids[a:b]] = mult
+            out.append("\t")
+            out.append("\t".join(str(x) for x in row))
+            out.append("\n")
+        return "".join(out)

@@ -1,8 +1,9 @@
 """Analyses on the port's broker.
 
-The hist and growth analyses subclass panacus_tpu's and override only the
-methods that reach panacus_tpu.broker or panacus_tpu.hist (which would
-start JAX); tables and report sections are the JAX package's own code.
+Each analysis subclasses panacus_tpu's and overrides only the methods
+that reach panacus_tpu.broker or panacus_tpu.hist (which would start JAX)
+or that time a phase; tables and report sections are the JAX package's
+own code.
 """
 
 from __future__ import annotations
@@ -31,8 +32,17 @@ class TorchAnalysis:
 def construct_analysis(parameter):
     from .growth import Growth
     from .hist import HistAnalysis
+    from .ordered_histgrowth import OrderedHistgrowth
+    from .similarity import Similarity
+    from .table import Table
 
-    registry = {"hist": HistAnalysis, "growth": Growth}
+    registry = {
+        "hist": HistAnalysis,
+        "growth": Growth,
+        "ordered_growth": OrderedHistgrowth,
+        "similarity": Similarity,
+        "table": Table,
+    }
     cls = registry.get(parameter.kind)
     if cls is None:
         raise NotImplementedError(

@@ -1,9 +1,10 @@
-"""GraphBroker for the port: graph state -> total abaci -> histograms.
+"""GraphBroker for the port: graph state -> abaci -> histograms.
 
-Port of panacus_tpu/broker.py for the hist / growth / histgrowth slice
-(reference: src/graph_broker.rs:31-433). It builds the total abaci (the
-streamed build for unmasked runs, the classic itemizer for masked ones) on
-one torch device and their histograms. Group abaci are not ported yet.
+Port of panacus_tpu/broker.py (reference: src/graph_broker.rs:31-433). It
+builds the total abaci (the streamed build for unmasked runs, the classic
+itemizer for masked ones) on one torch device, their histograms, and the
+group abacus of ordered growth, similarity and the coverage table, which
+shares the total abacus's engine.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from panacus_tpu.itemize import itemize_paths
 from panacus_tpu.mask import GraphMask, GraphMaskParameters
 from panacus_tpu.utils import CountType
 
-from .abacus import AbacusByTotal, construct_hists, path_order_groups
+from .abacus import AbacusByGroup, AbacusByTotal, construct_hists, path_order_groups
 from .hist import Hist
 from .runtime import phase_timer
 from .stream import streamed_total_abaci
@@ -68,6 +69,7 @@ class GraphBroker:
         self.mask_params = GraphMaskParameters()
         self.mask: Optional[GraphMask] = None
         self.total_abaci: Optional[Dict[CountType, AbacusByTotal]] = None
+        self.group_abacus: Optional[AbacusByGroup] = None
         self.hists: Optional[Dict[CountType, Hist]] = None
         self.gfa_file = ""
         self.input_requirements: Set = set()
@@ -108,6 +110,12 @@ class GraphBroker:
         self.finish()
         self.state = state
 
+    def change_order(self, order: str) -> None:
+        """Take the path order of an order file ("" keeps the GFA order) and
+        rebuild the abaci, as panacus_tpu does (broker.py:128-132)."""
+        self.mask_params.order = order if order else None
+        self.finish()
+
     def _apply_grouping(self, grouping) -> None:
         if grouping is None:
             return
@@ -139,6 +147,7 @@ class GraphBroker:
         self.count_type = count_type
         self.mask_params = GraphMaskParameters()
         self.total_abaci = None
+        self.group_abacus = None
         self.hists = None
 
     @staticmethod
@@ -158,17 +167,22 @@ class GraphBroker:
     # -- computation (reference: graph_broker.rs:227-247, 389-432) ------------
 
     def finish(self) -> None:
-        for r in self.input_requirements:
-            if isinstance(r, tuple) and r[0] in ("abacus_by_group", "group_table"):
-                raise NotImplementedError(
-                    "group abaci are not yet ported to panacus_torch "
-                    "(ROADMAP queue 1, item 4)"
-                )
         self.mask = GraphMask.from_datamgr(self.mask_params, self.graph_aux)
         self._set_abaci_by_total()
         if Req.HIST in self.input_requirements:
             with phase_timer("hists"):
                 self._set_hists()
+        group_counts = [
+            r[1]
+            for r in self.input_requirements
+            if isinstance(r, tuple) and r[0] == "abacus_by_group"
+        ]
+        if len(group_counts) > 1:
+            raise ValueError(
+                "panacus_torch supports a single AbacusByGroup count type per run"
+            )
+        for count in group_counts:
+            self._set_abacus_by_group(count)
 
     def _count_types(self) -> List[CountType]:
         if self.count_type == CountType.ALL:
@@ -179,10 +193,12 @@ class GraphBroker:
         count_types = self._count_types()
         log.info("calculating abaci for count_types: %s", count_types)
         with phase_timer("abaci_by_total"):
-            abaci = streamed_total_abaci(
+            streamed = streamed_total_abaci(
                 self.graph_aux, self.mask, count_types, self.device
             )
-            if abaci is None:
+            if streamed is not None:
+                abaci, itemized, path_order, groups = streamed
+            else:
                 itemized = itemize_paths(self.graph_aux, self.mask, count_types)
                 path_order, groups = path_order_groups(
                     self.mask, self.graph_aux.path_segments
@@ -194,6 +210,10 @@ class GraphBroker:
                     )
                     for slot, ct in enumerate(count_types)
                 }
+        self._itemized = itemized
+        self._itemized_counts = count_types
+        self._path_order = path_order
+        self._ordered_groups = groups
         self.total_abaci = abaci
 
     def _set_hists(self) -> None:
@@ -201,6 +221,33 @@ class GraphBroker:
             ct: Hist(ct, [int(x) for x in h])
             for ct, h in construct_hists(self.total_abaci).items()
         }
+
+    def _set_abacus_by_group(self, count: CountType) -> None:
+        slot = self._itemized_counts.index(count)
+        total = self.total_abaci.get(count)
+        if total is not None:
+            # the same itemization slot, exclude set and path order: share
+            # the total abacus's engine instead of building M again
+            self.group_abacus = AbacusByGroup(
+                count,
+                total.engine,
+                total.groups,
+                total.uncovered_bps,
+                self.graph_aux,
+                self._itemized,
+                slot,
+                self._path_order,
+            )
+            return
+        self.group_abacus = AbacusByGroup.from_itemization(
+            count,
+            slot,
+            self._itemized,
+            self._path_order,
+            self._ordered_groups,
+            self.graph_aux,
+            self.device,
+        )
 
     # -- getters (reference: graph_broker.rs:249-343) -------------------------
 
@@ -221,3 +268,6 @@ class GraphBroker:
 
     def get_abacus_by_total(self, count: CountType) -> AbacusByTotal:
         return self.total_abaci[count]
+
+    def get_abacus_by_group(self) -> AbacusByGroup:
+        return self.group_abacus

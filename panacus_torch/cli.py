@@ -2,8 +2,9 @@
 
 The parser and the translation of arguments into analysis runs are
 panacus_tpu's (build_parser, get_instructions), so the port takes the same
-flags. Ported subcommands: hist, growth (on a graph or a hist TSV) and
-histgrowth; every other subcommand exits with status 2. Counting runs on
+flags. Ported subcommands: hist, growth (on a graph or a hist TSV),
+histgrowth, ordered-histgrowth, similarity and table; every other
+subcommand exits with status 2. Counting runs on
 the device that runtime.resolve_device names (PANACUS_TORCH_DEVICE).
 """
 
@@ -20,7 +21,14 @@ from .runtime import resolve_device, set_num_threads
 
 log = logging.getLogger("panacus")
 
-PORTED = ("hist", "growth", "histgrowth")
+PORTED = (
+    "hist",
+    "growth",
+    "histgrowth",
+    "ordered-histgrowth",
+    "similarity",
+    "table",
+)
 
 
 def run_cli(argv: Optional[List[str]] = None) -> int:

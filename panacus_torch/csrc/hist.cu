@@ -24,8 +24,7 @@
 // cudaError_t of its launch. Kernels run on the caller's stream and
 // allocate nothing.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
@@ -101,25 +100,6 @@ __global__ void fused_hist_kernel(const uint32_t* __restrict__ M,
   }
 }
 
-// Blocks for a grid-stride launch over n_quads: enough to fill every SM at
-// the occupancy the kernel reaches with `smem` bytes of shared memory.
-cudaError_t grid_size(const void* kernel, size_t smem, int64_t n_quads,
-                      int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                    smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) per_sm = 1;
-  const int64_t want = (n_quads + kThreads - 1) / kThreads;
-  const int64_t cap = (int64_t)sms * per_sm;
-  *blocks = (int)(want < cap ? want : cap);
-  return cudaSuccess;
-}
-
 }  // namespace
 
 extern "C" {
@@ -133,7 +113,8 @@ int pt_coverage(const void* M, long long n_words, long long n_items_pad,
   const int64_t n_quads = n_items_pad / kItemsPerThread;
   if (n_quads == 0) return (int)cudaSuccess;
   int blocks = 0;
-  cudaError_t e = grid_size((const void*)coverage_kernel, 0, n_quads, &blocks);
+  cudaError_t e =
+      grid_size((const void*)coverage_kernel, kThreads, 0, n_quads, &blocks);
   if (e != cudaSuccess) return (int)e;
   coverage_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)M, n_words, n_quads, (int32_t*)cov);
@@ -151,33 +132,23 @@ int pt_fused_hist(const void* M, long long n_words, long long n_items_pad,
   }
   const int64_t n_quads = n_items_pad / kItemsPerThread;
   if (n_quads == 0) return (int)cudaSuccess;
-  int dev = 0, smem_optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&smem_optin,
-                             cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int optin = 0;
+  cudaError_t e = smem_optin(&optin);
   if (e != cudaSuccess) return (int)e;
   const size_t hist_bytes =
       (size_t)n_vecs * (size_t)n_bins * sizeof(unsigned long long);
-  const int shared_hist = hist_bytes <= (size_t)smem_optin;
+  const int shared_hist = hist_bytes <= (size_t)optin;
   const size_t smem = shared_hist ? hist_bytes : 0;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute((const void*)fused_hist_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  e = allow_smem((const void*)fused_hist_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
   int blocks = 0;
-  e = grid_size((const void*)fused_hist_kernel, smem, n_quads, &blocks);
+  e = grid_size((const void*)fused_hist_kernel, kThreads, smem, n_quads,
+                &blocks);
   if (e != cudaSuccess) return (int)e;
   fused_hist_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)M, n_words, n_quads, (const int32_t*)W, n_vecs, n_bins,
       (unsigned long long*)out, shared_hist);
   return (int)cudaGetLastError();
-}
-
-const char* pt_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
 }
 
 }  // extern "C"

@@ -6,12 +6,14 @@ when item i occurs in path group g; it is stored as int32 (the same bits
 as the reference's uint32). Items are 1-based dense ids, 0 is a sentinel
 with weight 0, and the item axis is zero-padded to ITEM_ALIGN.
 
-coverage  = popcount-reduce over words     (== AbacusByTotal.countable)
-hist      = weighted bincount of coverage  (== construct_hist / _bps)
+coverage   = popcount-reduce over words     (== AbacusByTotal.countable)
+hist       = weighted bincount of coverage  (== construct_hist / _bps)
+ordered    = per-item scan over the groups  (== AbacusByGroup::calc_growth)
+similarity = weighted group co-occurrence   (== Similarity::set_table)
 
-Both run through ops.hist_kernels: the CUDA kernels for M on a GPU, the
-plain PyTorch versions for M on the CPU. Histograms are exact int64 for
-any weight total.
+They run through ops.hist_kernels and ops.group_kernels: the CUDA kernels
+for M on a GPU, the plain PyTorch versions for M on the CPU. Results are
+exact int64 for any weight total.
 """
 
 from __future__ import annotations
@@ -21,11 +23,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from . import hist_kernels
+from . import group_kernels, hist_kernels
 
 ITEM_ALIGN = 1 << 14
-
-_NOT_PORTED = "not yet ported to panacus_torch (ROADMAP queue 1, item 4)"
 
 
 def _round_up(x: int, m: int) -> int:
@@ -124,11 +124,32 @@ class CountingEngine:
         out = out[:, : self.n_groups + 1].cpu().numpy()
         return [out[v] for v in range(len(weight_list))]
 
-    def ordered_growth(self, weights, quorum_rel, c_min):
-        raise NotImplementedError(f"ordered growth is {_NOT_PORTED}")
+    def ordered_growth(
+        self, weights: np.ndarray, quorum_rel: float, c_min: int
+    ) -> np.ndarray:
+        """int64 [n_groups]: at each group position (path order) the summed
+        weight of the items that meet the coverage floor c_min and the
+        quorum (reference: abacus.rs:988-1032). The per-position thresholds
+        ceil((g + 1) * quorum_rel) are taken on the host in float64, as
+        panacus_tpu does (engine.py:272-275)."""
+        if self.n_groups == 0:
+            return np.zeros(0, dtype=np.int64)
+        g = np.arange(1, self.n_groups + 1, dtype=np.int64)
+        thr = np.ceil(g * quorum_rel).astype(np.int32)
+        out = group_kernels.ordered_growth(
+            self.M,
+            self._w_dev(weights),
+            torch.from_numpy(thr).to(self.device),
+            c_min,
+        )
+        return out.cpu().numpy()
 
-    def similarity(self, weights):
-        raise NotImplementedError(f"similarity is {_NOT_PORTED}")
+    def similarity(self, weights: np.ndarray) -> np.ndarray:
+        """float64 [n_groups, n_groups] of the exact int64 weighted group
+        co-occurrence counts (reference: similarity.rs:119-150); weights
+        are integers of length n_items + 1 with weights[0] == 0."""
+        S = group_kernels.similarity(self.M, self._w_dev(weights))
+        return S[: self.n_groups, : self.n_groups].cpu().numpy().astype(np.float64)
 
 
 class MembershipStream:

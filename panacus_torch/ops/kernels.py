@@ -1,29 +1,35 @@
 """Build, bind and count the port's hand-written CUDA kernels.
 
-The sources under panacus_torch/csrc are compiled with nvcc for Hopper
-(sm_90a) at first use, into build/panacus_torch_kernels/ beside the
-package, under a name that hashes the source and the flags; a rebuilt
-source never loads a stale library. The library has a plain C interface
-and is loaded with ctypes: importing this module needs neither nvcc nor a
-GPU.
+Each source under panacus_torch/csrc is compiled with nvcc for Hopper
+(sm_90a) at first use into its own library in build/panacus_torch_kernels/
+beside the package, under a name that hashes the source, the headers of
+csrc and the flags; a rebuilt source never loads a stale library. The
+libraries have a plain C interface and are loaded with ctypes: importing
+this module needs neither nvcc nor a GPU. `build_all` starts one nvcc per
+source at once.
 
-`launches` counts each kernel's launches, one per successful call of
-`launch`, so a run can show that its main path went through the kernels.
+`launches` counts each entry point's launches, one per successful call of
+`launch`, so a run can show that its path went through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from dataclasses import dataclass
+from typing import Dict, Iterable
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "hist.cu")
+CSRC = os.path.join(_PKG_DIR, "csrc")
+SOURCES = {
+    "hist": os.path.join(CSRC, "hist.cu"),
+    "group": os.path.join(CSRC, "group.cu"),
+}
 BUILD_DIR = os.path.join(
     os.path.dirname(_PKG_DIR), "build", "panacus_torch_kernels"
 )
@@ -42,11 +48,19 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
+# entry point -> (source, argtypes)
 _SIGNATURES = {
     # (M, n_words, n_items_pad, cov, stream)
-    "pt_coverage": [_P, _I64, _I64, _P, _P],
+    "pt_coverage": ("hist", [_P, _I64, _I64, _P, _P]),
     # (M, n_words, n_items_pad, W, n_vecs, n_bins, out, stream)
-    "pt_fused_hist": [_P, _I64, _I64, _P, _I32, _I32, _P, _P],
+    "pt_fused_hist": ("hist", [_P, _I64, _I64, _P, _I32, _I32, _P, _P]),
+    # (M, n_words, n_items_pad, n_groups, W, thr, c_min, diff, out, stream)
+    "pt_ordered_growth": (
+        "group",
+        [_P, _I64, _I64, _I32, _P, _P, _I32, _P, _P, _P],
+    ),
+    # (M, n_words, n_items_pad, W, out, stream)
+    "pt_similarity": ("group", [_P, _I64, _I64, _P, _P, _P]),
 }
 
 launches = {name: 0 for name in _SIGNATURES}
@@ -64,6 +78,9 @@ class Build:
     log: str  # nvcc/ptxas output (registers, shared memory, spills)
 
 
+_builds: Dict[str, Build] = {}
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
@@ -74,41 +91,70 @@ def _nvcc() -> str:
     )
 
 
-@functools.cache
-def build() -> Build:
-    """Compile (once per source hash) and load the kernel library."""
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"hist-{tag}.so")
-    seconds, log = 0.0, ""
-    if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-            capture_output=True,
-            text=True,
-        )
-        seconds = time.perf_counter() - t0
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{log}")
-        os.replace(tmp, path)
+def _lib_path(source: str) -> str:
+    h = hashlib.sha256()
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    for path in [SOURCES[source], *headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{source}-{h.hexdigest()[:16]}.so")
+
+
+def _load(source: str, path: str, seconds: float, log: str) -> Build:
     lib = ctypes.CDLL(path)
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    for name, (src, argtypes) in _SIGNATURES.items():
+        if src == source:
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     lib.pt_error_string.argtypes = [ctypes.c_int]
     lib.pt_error_string.restype = ctypes.c_char_p
     return Build(lib, seconds, log)
 
 
+def build_all(sources: Iterable[str] = tuple(SOURCES)) -> Dict[str, Build]:
+    """Compile (once per hash) and load the libraries of `sources`; the nvcc
+    runs of all sources not yet built go at once."""
+    sources = list(sources)
+    jobs = {}
+    for source in sources:
+        if source in _builds:
+            continue
+        path = _lib_path(source)
+        if os.path.exists(path):
+            jobs[source] = (path, None, None, 0.0)
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCES[source]],
+            stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT,
+            text=True,
+        )
+        jobs[source] = (path, tmp, proc, time.perf_counter())
+    done = {}
+    for source, (path, tmp, proc, t0) in jobs.items():
+        seconds, log = 0.0, ""
+        if proc is not None:  # wait for every nvcc before raising
+            log = proc.communicate()[0]
+            seconds = time.perf_counter() - t0
+        done[source] = (seconds, log)
+    for source, (path, tmp, proc, _) in jobs.items():
+        seconds, log = done[source]
+        if proc is not None:
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {SOURCES[source]}:\n{log}")
+            os.replace(tmp, path)
+        _builds[source] = _load(source, path, seconds, log)
+    return {source: _builds[source] for source in sources}
+
+
 def launch(name: str, *args) -> None:
     """Call one kernel entry point; raise on a non-zero CUDA error code."""
-    lib = build().lib
+    source = _SIGNATURES[name][0]
+    lib = build_all([source])[source].lib
     rc = getattr(lib, name)(*args)
     if rc != 0:
         msg = lib.pt_error_string(rc).decode()

@@ -2,7 +2,7 @@
 
 Port of panacus_tpu/pipeline.py for table output (reference:
 src/analysis_parameter.rs:117-151, src/lib.rs:235-311); HTML/JSON reports
-and order changes are not ported yet.
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from panacus_tpu.config import AnalysisRun, Grouping
 
 from .analyses import construct_analysis
 from .broker import GraphBroker, GraphState, Req
+from .runtime import phase_timer
 
 log = logging.getLogger("panacus")
 
@@ -33,24 +34,32 @@ class GraphStateChange:
 
 
 @dataclass
+class OrderChange:
+    order: Optional[str]
+
+
+@dataclass
 class AnalysisTask:
     analysis: object  # an analysis of panacus_torch.analyses
 
 
-Task = Union[GraphStateChange, AnalysisTask]
+Task = Union[GraphStateChange, OrderChange, AnalysisTask]
 
 
 def convert_to_tasks(runs: List[AnalysisRun]) -> List[Task]:
     runs = sorted(runs, key=lambda r: r.sort_key())
     tasks: List[Task] = []
     for run in runs:
-        analyses = [
-            construct_analysis(p)
-            for p in sorted(run.analyses, key=lambda a: a.sort_key())
-        ]
+        run_tasks: List[Task] = []
         reqs: Set = {Req.graph(run.graph)}
-        for a in analyses:
+        for p in sorted(run.analyses, key=lambda a: a.sort_key()):
+            a = construct_analysis(p)
             reqs |= a.get_graph_requirements()
+            # every ordered growth sets its order, which rebuilds the abaci
+            # (panacus_tpu/pipeline.py:67-77)
+            if p.kind == "ordered_growth":
+                run_tasks.append(OrderChange(p.order))
+            run_tasks.append(AnalysisTask(a))
         tasks.append(
             GraphStateChange(
                 graph=run.graph,
@@ -62,7 +71,7 @@ def convert_to_tasks(runs: List[AnalysisRun]) -> List[Task]:
                 grouping=run.grouping,
             )
         )
-        tasks.extend(AnalysisTask(a) for a in analyses)
+        tasks.extend(run_tasks)
     return tasks
 
 
@@ -87,6 +96,10 @@ def execute_pipeline(tasks: List[Task], out: IO[str], device: torch.device) -> N
                 task.reqs,
                 task.nice,
             )
+        elif isinstance(task, OrderChange):
+            log.info("Executing order change: %s", task.order)
+            with phase_timer("order_change"):
+                gb.change_order(task.order or "")
     if isinstance(tasks[-1], AnalysisTask):
         out.write(tasks[-1].analysis.generate_table(gb))
         out.write("\n")

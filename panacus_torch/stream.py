@@ -11,6 +11,11 @@ not ported.
 Node rows are packed while the async L-line edge indexer still runs; edge
 slabs are stashed only until the indexer completes (polled each slab).
 
+The build also returns the item tables that the coverage-table export
+reads: a SlabbedItemTable of node runs and, for edges, a LazyEdgeTable that
+derives edge ids from the node runs on demand. Both only keep references
+to the slabs the tokenizer has already produced.
+
 Applicability: unmasked runs (no subset/exclude coordinates) on graphs the
 native batch tokenizer handles. Masked runs take the classic itemizer.
 """
@@ -19,12 +24,13 @@ from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from panacus_tpu.gfa import GraphStorage
+from panacus_tpu.gfa import GraphStorage, SlabbedItemTable
+from panacus_tpu.itemize import ItemizeResult
 from panacus_tpu.mask import GraphMask
 from panacus_tpu.utils import CountType
 
@@ -134,15 +140,67 @@ def _slab_edges(
     return eids, e_pref
 
 
+class LazyEdgeTable:
+    """Edge ItemTable view derived on demand from the node runs and the
+    graph's edge index (copied from panacus_tpu/stream.py, which starts
+    JAX). The fused edge pack never materializes per-path edge-id runs;
+    only the coverage-table export resolves them, through this view.
+    Interface of SlabbedItemTable: path_slice / items / prefsum."""
+
+    def __init__(self, graph: GraphStorage, num_paths: int):
+        self.num_paths = num_paths
+        self._graph = graph
+        self._slabs: List[Tuple[np.ndarray, ...]] = []
+        self._where: Dict[int, Tuple[int, int]] = {}
+        self._items: Optional[np.ndarray] = None
+        self._prefsum: Optional[np.ndarray] = None
+
+    def add_slab(self, path_ids, ids, orient, prefsum) -> None:
+        s = len(self._slabs)
+        self._slabs.append((path_ids, ids, orient, prefsum))
+        for k, p in enumerate(path_ids):
+            self._where[int(p)] = (s, k)
+
+    def path_slice(self, path_idx: int) -> np.ndarray:
+        loc = self._where.get(path_idx)
+        if loc is None:
+            return np.zeros(0, dtype=np.int64)
+        s, k = loc
+        _, ids, orient, prefsum = self._slabs[s]
+        a, b = prefsum[k], prefsum[k + 1]
+        if b - a < 2:
+            return np.zeros(0, dtype=np.int64)
+        run, orun = ids[a:b], orient[a:b]
+        return self._graph.edge_ids_for_pairs(run[:-1], orun[:-1], run[1:], orun[1:])
+
+    def _materialize(self) -> None:
+        chunks = [self.path_slice(p) for p in range(self.num_paths)]
+        self._prefsum = np.zeros(self.num_paths + 1, dtype=np.int64)
+        np.cumsum([len(c) for c in chunks], out=self._prefsum[1:])
+        self._items = np.concatenate(chunks) if chunks else np.zeros(0, dtype=np.int64)
+
+    @property
+    def items(self) -> np.ndarray:
+        if self._items is None:
+            self._materialize()
+        return self._items
+
+    @property
+    def prefsum(self) -> np.ndarray:
+        if self._prefsum is None:
+            self._materialize()
+        return self._prefsum
+
+
 def streamed_total_abaci(
     graph: GraphStorage,
     mask: GraphMask,
     count_types: List[CountType],
     device: torch.device,
-) -> "Dict[CountType, AbacusByTotal] | None":
-    """Unmasked abacus build: the total abaci, or None when the classic
-    path must run (masks present / native tokenizer unavailable / no
-    paths)."""
+):
+    """Unmasked abacus build. Returns (abaci, itemized, path_order, groups),
+    or None when the classic path must run (masks present / native
+    tokenizer unavailable / no paths)."""
     if mask.include_coords is not None or mask.exclude_coords is not None:
         return None
     if not graph.batch_tokenizable():
@@ -162,7 +220,9 @@ def streamed_total_abaci(
         if need_node
         else None
     )
+    node_table = SlabbedItemTable(n_paths) if need_node else None
     edge_stream = None
+    edge_table = None
     edge_fused = False
 
     log.info(
@@ -174,30 +234,36 @@ def streamed_total_abaci(
     )
 
     def make_edge_stream():
-        """Create the edge stream; joins the async L-line indexer."""
-        nonlocal edge_stream, edge_fused
+        """Create the edge stream and table; joins the async L-line indexer."""
+        nonlocal edge_stream, edge_table, edge_fused
         from panacus_tpu.native import get_lib
 
         edge_stream = MembershipStream(
             graph.number_of_items(CountType.EDGE), n_groups, device
         )
         edge_fused = get_lib() is not None and graph.edge_adj() is not None
+        edge_table = (
+            LazyEdgeTable(graph, n_paths) if edge_fused else SlabbedItemTable(n_paths)
+        )
 
     def consume_edge(slab, batch, packed=False):
         """Pack (unless the tokenizer already did, `packed`) and feed the
         edge row of one slab."""
         ids, orient, prefsum, _ = batch
         row = edge_stream.host_row(slab.word)
-        if not packed and edge_fused:
-            # edge lookup + group-bit OR in one C pass
-            from panacus_tpu.native import pack_edges_adj
+        if edge_fused:
+            edge_table.add_slab(slab.path_ids, ids, orient, prefsum)
+            if not packed:
+                # edge lookup + group-bit OR in one C pass
+                from panacus_tpu.native import pack_edges_adj
 
-            pack_edges_adj(
-                ids, orient, prefsum, slab.gidx_rel, graph.edge_adj(), row
-            )
-            row[0] = 0
-        elif not packed:
+                pack_edges_adj(
+                    ids, orient, prefsum, slab.gidx_rel, graph.edge_adj(), row
+                )
+                row[0] = 0
+        else:
             eids, e_pref = _slab_edges(graph, ids, orient, prefsum)
+            edge_table.add_slab(slab.path_ids, eids, e_pref)
             _pack_row(eids, e_pref, slab.gidx_rel, row)
         edge_stream.feed(slab.word, row)
 
@@ -228,6 +294,7 @@ def streamed_total_abaci(
         if batch is None:  # tokenizer bailed: let the classic path run
             return None
         if need_node:
+            node_table.add_slab(slab.path_ids, batch[0], batch[2])
             node_stream.feed(slab.word, pack["pack_node_row"])
         if edge_stream is not None:
             consume_edge(slab, batch, "pack_edge_row" in pack)
@@ -241,6 +308,14 @@ def streamed_total_abaci(
 
     node_engine = node_stream.finalize() if need_node else None
     edge_engine = edge_stream.finalize() if need_edge else None
+    itemized = ItemizeResult(
+        item_tables=[
+            edge_table if ct == CountType.EDGE else node_table for ct in count_types
+        ],
+        exclude_tables=[None] * len(count_types),
+        subset_covered_bps=None,
+        paths_len=None,  # no ported analysis reads path lengths yet
+    )
     abaci: Dict[CountType, AbacusByTotal] = {}
     for ct in count_types:
         engine = edge_engine if ct == CountType.EDGE else node_engine
@@ -250,4 +325,4 @@ def streamed_total_abaci(
             n_groups,
             engine.n_items,
         )
-    return abaci
+    return abaci, itemized, path_order, groups

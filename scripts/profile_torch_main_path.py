@@ -19,6 +19,11 @@ this process:
 - cold subprocesses: `import torch` alone, the port's CLI on cuda, and the
   same command through panacus_tpu with JAX_PLATFORMS=cpu (skipped when
   jax is not installed), whose TSV must equal the port's.
+
+Then, for the group path, `ordered-histgrowth -c bp -H -q 0,0.5,1 -l 1,1,2`
+and `similarity -c node -H`: one warm run each (wall and phases, the order
+change's second abacus build among them) and one under torch.profiler
+(device time and busy share; traces OUT/profile_trace_<command>.json).
 """
 
 from __future__ import annotations
@@ -42,7 +47,10 @@ import chip_smoke  # noqa: E402
 
 
 def phases_line(label, wall, phases):
-    names = ("index", "abaci_by_total", "hists", "growth")
+    names = (
+        "index", "abaci_by_total", "hists", "growth", "order_change",
+        "ordered_growth", "similarity",
+    )
     split = ", ".join(f"{n} {phases.get(n, 0.0):.4f}" for n in names)
     print(f"[profile] {label}: wall {wall:.4f} s; phases (s): {split}")
 
@@ -93,26 +101,7 @@ def main() -> int:
         out, phases, wall = chip_smoke.drive(argv, "cuda")
         phases_line(f"{label} ({mb / wall:.1f} MB/s)", wall, phases)
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, phases, wall = chip_smoke.drive(argv, "cuda")
-    trace = os.path.join(args.out, "profile_trace.json")
-    prof.export_chrome_trace(trace)
-    phases_line("profiled run", wall, phases)
-    us = device_times(trace)
-    total = sum(us.values())
-    print(
-        f"[profile] device time {total / 1e3:.4f} ms in a {wall:.4f} s run: "
-        f"busy {100 * total / 1e6 / wall:.3f}%, idle {100 - 100 * total / 1e6 / wall:.3f}%"
-    )
-    by_cat = collections.Counter()
-    for (cat, name), t in us.items():
-        by_cat[cat if cat != "gpu_memcpy" else name] += t
-    for key, t in by_cat.most_common():
-        print(f"[profile]   {key}: {t / 1e3:.4f} ms")
-    for (cat, name), t in us.most_common(8):
-        print(f"[profile]   top {cat} {name}: {t / 1e3:.4f} ms")
+    profiled_run(argv, os.path.join(args.out, "profile_trace.json"))
 
     pr = cProfile.Profile()
     pr.enable()
@@ -146,7 +135,39 @@ def main() -> int:
         )
         if not same:
             chip_smoke.fail("panacus_tpu and panacus_torch TSVs differ")
+
+    for name, cmd in (
+        ("ordered", chip_smoke.ORDERED + ["-c", "bp"]),
+        ("similarity", ["similarity", "-H", "-c", "node"]),
+    ):
+        out, phases, wall = chip_smoke.drive(cmd + [gfa], "cuda")
+        phases_line(f"{' '.join(cmd[:3])}, warm run", wall, phases)
+        profiled_run(cmd + [gfa], os.path.join(args.out, f"profile_trace_{name}.json"))
     return 0
+
+
+def profiled_run(argv, trace):
+    """One run under torch.profiler: device time by kind and kernel, and the
+    device's busy share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, phases, wall = chip_smoke.drive(argv, "cuda")
+    prof.export_chrome_trace(trace)
+    phases_line(f"{' '.join(argv[:3])}, profiled run", wall, phases)
+    us = device_times(trace)
+    total = sum(us.values())
+    print(
+        f"[profile] device time {total / 1e3:.4f} ms in a {wall:.4f} s run: "
+        f"busy {100 * total / 1e6 / wall:.3f}%, idle {100 - 100 * total / 1e6 / wall:.3f}%"
+    )
+    by_cat = collections.Counter()
+    for (cat, name), t in us.items():
+        by_cat[cat if cat != "gpu_memcpy" else name] += t
+    for key, t in by_cat.most_common():
+        print(f"[profile]   {key}: {t / 1e3:.4f} ms")
+    for (cat, name), t in us.most_common(8):
+        print(f"[profile]   top {cat} {name}: {t / 1e3:.4f} ms")
 
 
 if __name__ == "__main__":

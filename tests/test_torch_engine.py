@@ -102,8 +102,16 @@ def test_membership_stream_takes_only_its_own_rows():
 
 
 def test_group_kernels_not_ported():
-    eng = CountingEngine(10, 3, CPU)
-    with pytest.raises(NotImplementedError):
-        eng.ordered_growth(np.ones(11), 0.0, 1)
-    with pytest.raises(NotImplementedError):
-        eng.similarity(np.ones(11))
+    """The group kernels, once unported, now run on the engine: on the CPU
+    through their plain versions (tests/test_torch_group.py holds them
+    against the JAX engine)."""
+    M = np.zeros((1, 11), np.uint32)
+    M[0, 1:] = [0b111, 0b001, 0b010, 0b100, 0b011, 0, 0b101, 0b110, 0b001, 0b111]
+    eng = CountingEngine.from_host_state(M, 10, 3, CPU)
+    w = np.ones(11, np.int64)
+    w[0] = 0
+    np.testing.assert_array_equal(eng.ordered_growth(w, 0.0, 1), [6, 8, 9])
+    np.testing.assert_array_equal(eng.ordered_growth(w, 0.0, 3), [2, 2, 2])
+    S = eng.similarity(w)
+    np.testing.assert_array_equal(np.diagonal(S), [6, 5, 5])
+    assert S[0, 1] == 3 and S[1, 0] == 3

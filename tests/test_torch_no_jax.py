@@ -1,6 +1,6 @@
-"""The port's slice runs without JAX: a fresh interpreter runs
-`histgrowth -c all` through panacus_torch on the CPU and must finish with
-no `jax` module loaded."""
+"""The port's slices run without JAX: a fresh interpreter runs
+`histgrowth -c all`, `ordered-histgrowth`, `similarity` and `table` through
+panacus_torch on the CPU and must finish with no `jax` module loaded."""
 
 from __future__ import annotations
 
@@ -13,8 +13,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = """
 import sys
 from panacus_torch.cli import run_cli
-rc = run_cli(["histgrowth", "-c", "all", "-S", "-q", "0,1", "-l", "1,2", sys.argv[1]])
-assert rc == 0, rc
+for argv in (
+    ["histgrowth", "-c", "all", "-S", "-q", "0,1", "-l", "1,2"],
+    ["ordered-histgrowth", "-c", "bp", "-S", "-q", "0,0.5", "-l", "1,2"],
+    ["similarity", "-c", "edge", "-H"],
+    ["table", "-c", "node", "-S"],
+):
+    rc = run_cli(argv + [sys.argv[1]])
+    assert rc == 0, (argv, rc)
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not loaded, loaded
 print("NO_JAX_OK")
@@ -38,3 +44,6 @@ def test_slice_imports_no_jax(tmp_path):
     assert res.returncode == 0, res.stderr[-4000:]
     assert "NO_JAX_OK" in res.stdout
     assert "panacus\tgrowth" in res.stdout
+    assert "panacus\tordered-growth" in res.stdout
+    assert res.stdout.count("\ngroup\t") == 1  # the similarity table
+    assert "\nnode\ts0\t" in res.stdout  # the coverage table
