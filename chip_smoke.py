@@ -8,8 +8,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 Phases, one or more lines each on stdout:
 
 1. env: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, and the nvcc builds of csrc/hist.cu and csrc/group.cu (one
-   nvcc each, started together) with their ptxas summaries.
+   versions, and the nvcc builds of csrc/hist.cu, csrc/group.cu and
+   csrc/probe.cu (one nvcc each, started together) with their ptxas
+   summaries.
 2. kernels: each kernel (pt_fused_hist, pt_coverage, pt_ordered_growth,
    pt_similarity) against its plain PyTorch version on the card at the
    shapes of the paths below and beyond, exact int64 equality, median
@@ -35,6 +36,20 @@ Phases, one or more lines each on stdout:
    run and pt_similarity at least once per similarity run. Each TSV must
    equal the port's run on the CPU; a small ordered run and a small
    coverage table must equal numpy oracles.
+5. probe: the raw-read control and the hist-formulation probes
+   (csrc/probe.cu: pt_xor_fold, pt_word_fold, pt_limb_hist), every route
+   (panacus_torch.probe.ROUTES) against its plain version on the card on
+   the probe's own inputs, M 32 x 2^23 with its one weight vector, and on
+   two vectors of any int32, at salt 0 and at a salt that wraps the weights
+   negative, exact; then `python -m panacus_torch.probe`'s interleaved run
+   of every variant on those inputs (1.107 GB a pass; each distinct call
+   timed once) for 3 rounds, with the launch counts
+   reset just before it and read just after: each of the three kernels
+   must have run. It prints each variant's GB/s and ratio to `read`, and
+   the measured read ceiling beside the card's name and power limit.
+   Every kernel of the JSON line gets its share of that ceiling
+   (share_of_read: its bytes over its time, over the read's bytes/s)
+   beside its share of the datasheet bound.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches are those of the path it belongs to; its times at the largest
@@ -66,12 +81,24 @@ SOURCE = {
     "pt_coverage": "panacus_torch/csrc/hist.cu",
     "pt_ordered_growth": "panacus_torch/csrc/group.cu",
     "pt_similarity": "panacus_torch/csrc/group.cu",
+    "pt_xor_fold": "panacus_torch/csrc/probe.cu",
+    "pt_word_fold": "panacus_torch/csrc/probe.cu",
+    "pt_limb_hist": "panacus_torch/csrc/probe.cu",
 }
 REPLACES = {
     "pt_fused_hist": "panacus_tpu/ops/pallas_kernels.py:199",
     "pt_coverage": "panacus_tpu/ops/engine.py:152",
     "pt_ordered_growth": "panacus_tpu/ops/engine.py:212",
     "pt_similarity": "panacus_tpu/ops/engine.py:302",
+    "pt_xor_fold": "bench.py:220 (_xor_read_bw.run, body kern :202)",
+    "pt_word_fold": (
+        "scripts/kernel_probe.py:61 (pc_only), :83 (pcl_only), :112 (pcm_only); "
+        "scripts/kernel_interleave.py:104 (_simple: _pc/_pcx/_pcm_kernel)"
+    ),
+    "pt_limb_hist": (
+        "scripts/kernel_probe.py:153 (coarse), :197 (fh2), :249 (fhm); "
+        "scripts/kernel_interleave.py:165 (_fh2)"
+    ),
 }
 # published peaks of one H100 SXM (dense): HBM bytes/s, int8 tensor-core
 # operations/s, and 32-bit operations/s outside the tensor cores (the table's
@@ -180,6 +207,7 @@ def phase_env():
             f"[env] nvcc build of {kernels.SOURCES[source]}: {b.seconds:.3f} s "
             f"({'built' if b.seconds else 'already built'}); ptxas: {ptxas}"
         )
+    return smi
 
 
 # (label, n_words, n_items_pad, n_groups, n_vecs, weights)
@@ -284,7 +312,7 @@ def phase_kernels(dev):
             if i == MAIN_SHAPE:
                 res[name].update(
                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                    library_ms=None, at=f"{n_words}x{n_pad}",
+                    library_ms=None, at=f"{n_words}x{n_pad}", _bytes=nbytes,
                 )
         del M, W, got_h, want_h, got_c, want_c
     return res
@@ -378,6 +406,7 @@ def phase_group_kernels(dev):
                 res["pt_ordered_growth"].update(
                     ms=t[0], plain_ms=t[1], bound_ms=bound_ms, bound_by=bound_by,
                     library_ms=None, at=f"{n_words}x{n_pad} q={q} c={c}",
+                    _bytes=nbytes,
                 )
         if sim:
             # the wrapper reads max(w) itself here; the timed calls are given
@@ -410,7 +439,7 @@ def phase_group_kernels(dev):
             if GROUP_MAIN["pt_similarity"][0] == i:
                 res["pt_similarity"].update(
                     ms=t[0], plain_ms=t[1], bound_ms=bound_ms, bound_by=bound_by,
-                    library_ms=lib_ms, at=f"{n_words}x{n_pad}",
+                    library_ms=lib_ms, at=f"{n_words}x{n_pad}", _bytes=nbytes,
                 )
             del got, want
         del M, w
@@ -630,6 +659,116 @@ def phase_group_path(dev):
     return launches
 
 
+# phase 5: the probe path, at the probe's default shape (M 32 x 2^23)
+PROBE_ROUNDS = 3
+PROBE_KERNELS = ("pt_xor_fold", "pt_word_fold", "pt_limb_hist")
+# the variant whose time stands for each kernel in the JSON line
+PROBE_MAIN = {"pt_xor_fold": "read", "pt_word_fold": "pc", "pt_limb_hist": "fh23"}
+PROBE_SALTS = (0, 2**31 - 5)  # the second wraps W + salt negative
+
+
+def check_probe_routes(M, W):
+    """Every route of the three probe kernels on M and W against its plain
+    version, exact, at each of PROBE_SALTS (the folds only when W is one
+    vector, all they take). The plain output of each function is computed
+    once: the route flags (mma_cov, weight_side) do not change it. Returns
+    the max abs error of each kernel."""
+    import torch
+
+    from panacus_torch import probe
+
+    err = {name: 0 for name in PROBE_KERNELS}
+    for salt in PROBE_SALTS:
+        plain = {}
+        for variant, (name, kw) in probe.ROUTES.items():
+            if name not in err or (W.shape[0] > 1 and name != "pt_limb_hist"):
+                continue
+            key = (name, kw.get("op"), kw.get("n_limbs"))
+            if key not in plain:
+                plain[key] = probe.pass_fn(variant, M, W, plain=True)(salt)
+            got, want = probe.pass_fn(variant, M, W)(salt), plain[key]
+            torch.cuda.synchronize()
+            e = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            if e or not torch.equal(got, want):
+                fail(f"{name} ({variant}) on {W.shape[0]} vector(s), salt {salt}: "
+                     f"kernel != plain (max abs err {e})")
+            err[name] = max(err[name], e)
+    return err
+
+
+def phase_probe(dev, smi):
+    """The probe kernels against their plain versions at the probe's shape,
+    then the probe path; returns (per-kernel results, launches, read
+    ceiling in bytes/s)."""
+    import torch
+
+    from panacus_torch import probe
+    from panacus_torch.ops import kernels
+
+    M, w = probe.make_inputs(dev, probe.N_WORDS, probe.N_ITEMS, 0)
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    W2 = torch.randint(
+        -(2**31), 2**31, (2, probe.N_ITEMS), dtype=torch.int32, device=dev, generator=g
+    )
+    t0 = time.perf_counter()
+    err = check_probe_routes(M, w)
+    for name, e in check_probe_routes(M, W2).items():
+        err[name] = max(err[name], e)
+    del W2
+    routes = sorted(v for v, (name, _) in probe.ROUTES.items() if name in PROBE_KERNELS)
+    print(f"[probe] every route ({' '.join(routes)}) == plain at {probe.N_WORDS} x "
+          f"{probe.N_ITEMS}, the probe's one weight vector and two vectors of any "
+          f"int32, salts {PROBE_SALTS}")
+    for mma in (False, True):
+        if not probe.parity(M, w, mma):
+            fail(f"pt_limb_hist (mma_cov={mma}) recombined != pt_fused_hist")
+    print(f"[probe] pt_limb_hist recombined == pt_fused_hist (both coverage "
+          f"routes); checks took {time.perf_counter() - t0:.1f} s")
+
+    nbytes = probe.pass_bytes(M, w)
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    times = probe.run(list(probe.VARIANTS), PROBE_ROUNDS, M, w,
+                      out=lambda s: print(f"[probe] {s}"))
+    launches = {name: kernels.launches[name] for name in PROBE_KERNELS}
+    med = probe.summary(times, nbytes, out=lambda s: print(f"[probe] {s}"))
+    print(f"[probe] launches on the probe path: {launches}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name, n in launches.items():
+        if n < 1:
+            fail(f"{name} was not launched on the probe path")
+    read_bps = nbytes / med["read"]
+    print(
+        f"[probe] measured read ceiling (pt_xor_fold, slope of CUDA-event "
+        f"chains, M {probe.N_WORDS} x {probe.N_ITEMS}): {read_bps / 1e9:.1f} GB/s, "
+        f"{read_bps / HBM_BPS:.4f} of the datasheet's 3.35 TB/s; card: {smi}"
+    )
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    res = {}
+    for name, main_variant in PROBE_MAIN.items():
+        ms = med[main_variant] * 1e3
+        plain_ms = time_ms(lambda: probe.pass_fn(main_variant, M, w, plain=True)(0), 3, flush)
+        work_bytes, ops, tensor_cores = probe.pass_work(main_variant, M, w)
+        bound_ms, bound_by = bound(work_bytes, ops, INT8_TC_OPS if tensor_cores else SCALAR_OPS)
+        print(
+            f"[probe] {name} ({main_variant}): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{bound_ms / ms:.3f} of it reached; library: none"
+        )
+        variants = [v for v in med if probe.route(v)[0] == name]
+        res[name] = {
+            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "at": f"{probe.N_WORDS}x{probe.N_ITEMS} ({main_variant})",
+            "variants_ms": {v: med[v] * 1e3 for v in variants},
+            "_bytes": work_bytes,
+        }
+    del M, w, flush
+    return res, launches, read_bps
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "panacus_torch")):
         fail("panacus_torch not found: run from the root of a checkout")
@@ -639,13 +778,20 @@ def main() -> int:
         fail("no CUDA device")
     sys.path.insert(0, ROOT)
     dev = torch.device("cuda")
-    phase_env()
+    smi = phase_env()
     res = phase_kernels(dev)
     res.update(phase_group_kernels(dev))
     launches = phase_main_path(dev)
     group_launches = phase_group_path(dev)
     for name in ("pt_ordered_growth", "pt_similarity"):
         launches[name] = group_launches[name]
+    probe_res, probe_launches, read_bps = phase_probe(dev, smi)
+    res.update(probe_res)
+    launches.update(probe_launches)
+    for name, r in res.items():
+        r["share_of_read"] = r.pop("_bytes") / (r["ms"] / 1e3) / read_bps
+        print(f"[probe] {name}: {r['share_of_read']:.4f} of the measured read, "
+              f"{r['bound_ms'] / r['ms']:.4f} of its datasheet bound")
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
     print(

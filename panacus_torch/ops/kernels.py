@@ -31,6 +31,7 @@ CSRC = os.path.join(_PKG_DIR, "csrc")
 SOURCES = {
     "hist": os.path.join(CSRC, "hist.cu"),
     "group": os.path.join(CSRC, "group.cu"),
+    "probe": os.path.join(CSRC, "probe.cu"),
 }
 BUILD_DIR = os.path.join(
     os.path.dirname(_PKG_DIR), "build", "panacus_torch_kernels"
@@ -63,6 +64,16 @@ _SIGNATURES = {
     ),
     # (M, n_words, n_items_pad, W, n_planes, part, part_elems, out, stream)
     "pt_similarity": ("group", [_P, _I64, _I64, _P, _I32, _P, _I64, _P, _P]),
+    # (M, n_words, n_items, W, salt, scratch, stream)
+    "pt_xor_fold": ("probe", [_P, _I64, _I64, _P, _I32, _P, _P]),
+    # (M, n_words, n_items, W, salt, op, mma_cov, out, stream)
+    "pt_word_fold": ("probe", [_P, _I64, _I64, _P, _I32, _I32, _I32, _P, _P]),
+    # (M, n_words, n_items, W, n_vecs, n_limbs, n_coarse, weight_coarse,
+    #  mma_cov, salt, max_blocks, out, stream)
+    "pt_limb_hist": (
+        "probe",
+        [_P, _I64, _I64, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _P, _P],
+    ),
 }
 # scratch sizes (no kernel): name -> (source, argtypes)
 _QUERIES = {

@@ -1,8 +1,10 @@
 """The port stands alone: nothing of JAX or of the JAX package.
 
 - A fresh interpreter runs `histgrowth -c all`, `ordered-histgrowth`,
-  `similarity` and `table` through panacus_torch on the CPU and must finish
-  with no `jax` and no `panacus_tpu` module loaded.
+  `similarity` and `table` through panacus_torch on the CPU, then the probe
+  entry point (panacus_torch.probe), and must finish with no `jax` and no
+  `panacus_tpu` module loaded; `python -m panacus_torch.probe` run under
+  `-X importtime` imports neither.
 - An AST scan of every module of panacus_torch and of chip_smoke.py finds
   no import of panacus_tpu, jax, bench or __graft_entry__.
 - The port's copies of the graph generators and oracles
@@ -35,6 +37,9 @@ for argv in (
 ):
     rc = run_cli(argv + [sys.argv[1]])
     assert rc == 0, (argv, rc)
+from panacus_torch import probe
+rc = probe.main(["--words", "2", "--items", "16384", "--rounds", "1", "read", "paritym"])
+assert rc == 0, rc
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not loaded, loaded
 loaded = sorted(m for m in sys.modules if m.startswith("panacus_tpu"))
@@ -63,6 +68,36 @@ def test_slice_imports_no_jax(tmp_path):
     assert "panacus\tordered-growth" in res.stdout
     assert res.stdout.count("\ngroup\t") == 1  # the similarity table
     assert "\nnode\ts0\t" in res.stdout  # the coverage table
+    assert "parity fhm vs current: True" in res.stdout
+
+
+def test_probe_entry_point_imports_no_jax():
+    """`python -m panacus_torch.probe` on the CPU at a small shape exits 0;
+    -X importtime lists every module it imports: none of JAX's or of the
+    JAX package's."""
+    env = dict(os.environ, PANACUS_TORCH_DEVICE="cpu")
+    res = subprocess.run(
+        [
+            sys.executable, "-X", "importtime", "-m", "panacus_torch.probe",
+            "--words", "3", "--items", "32768", "--rounds", "1", "pc", "fh21",
+        ],
+        cwd=ROOT,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=300,
+    )
+    assert res.returncode == 0, res.stderr[-4000:]
+    imported = [
+        l.rsplit("|", 1)[1].strip()
+        for l in res.stderr.splitlines()
+        if l.startswith("import time:") and "|" in l
+    ]
+    assert "panacus_torch.ops.probe_kernels" in imported and "torch" in imported
+    bad = [m for m in imported if m.split(".")[0] in ("jax", "panacus_tpu")]
+    assert not bad, bad
+    assert "medians (GB/s, ms per pass, ratio to read):" in res.stdout
+    assert "\n  pc: " in res.stdout and "\n  fh21: " in res.stdout
 
 
 def _port_sources():
