@@ -14,11 +14,13 @@ Phases, one or more lines each on stdout:
 2. kernels: each kernel (pt_fused_hist, pt_coverage, pt_ordered_growth,
    pt_similarity) against its plain PyTorch version on the card at the
    shapes of the paths below and beyond, exact int64 equality, median
-   times from CUDA events with L2 flushed, beside the kernel's bound (the
-   larger of its bytes over 3.35 TB/s and its operations over the card's
-   peak for their type) and, for pt_similarity, beside one float64
-   torch.matmul of the unpacked P against P * W (library_ms, the
-   yardstick; the port never calls it).
+   times from CUDA events with L2 flushed and, for the first three, the
+   slope of chains of calls queued behind a device-side sleep
+   (panacus_torch.kernel_times.slope_ms: launch latency off the clock),
+   beside the kernel's bound (the larger of its bytes over 3.35 TB/s and
+   its operations over the card's peak for their type) and, for
+   pt_similarity, beside one float64 torch.matmul of the unpacked P
+   against P * W (library_ms, the yardstick; the port never calls it).
 3. main path: `histgrowth -c all -H -q 0,0.5,1.0 -l 0,1,2` through
    panacus_torch's CLI on cuda, on the panacus_torch.testgraphs.make_graph
    graph at its default size (900k nodes, 3.6M edges, 90 haplotype groups,
@@ -36,6 +38,11 @@ Phases, one or more lines each on stdout:
    run and pt_similarity at least once per similarity run. Each TSV must
    equal the port's run on the CPU; a small ordered run and a small
    coverage table must equal numpy oracles.
+4b. path kernels: the arguments that phases 3 and 4 handed
+   pt_fused_hist (the unmasked edge pass) and pt_ordered_growth (the
+   three thresholds of ordered-histgrowth -c edge), captured during those
+   runs: each kernel against its plain version on them, exact, timed by
+   events and by slope, beside its bound.
 5. probe: the raw-read control and the hist-formulation probes
    (csrc/probe.cu: pt_xor_fold, pt_word_fold, pt_limb_hist), every route
    (panacus_torch.probe.ROUTES) against its plain version on the card on
@@ -53,7 +60,8 @@ Phases, one or more lines each on stdout:
 
 The line before the last is a JSON object with one entry per kernel (its
 launches are those of the path it belongs to; its times at the largest
-shape that path hands it); the last line is
+shape that path hands it, by events as `ms` and, where taken, by slope as
+`slope_ms`; under `path`, phase 4b's times); the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero without that
 line, as does a run without a CUDA device or outside a checkout. Generated
 graphs go to build/chip_smoke/.
@@ -67,7 +75,6 @@ import json
 import logging
 import math
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -163,24 +170,6 @@ def table(out: str):
     return "\n".join(body), [l.split("\t") for l in body]
 
 
-def time_ms(fn, reps: int, flush) -> float:
-    """Median ms per call from CUDA events, L2 flushed before each call."""
-    import torch
-
-    fn()  # warm-up
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        times.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in times)
-
-
 def phase_env():
     import torch
 
@@ -220,37 +209,11 @@ SHAPES = [
 MAIN_SHAPE = 1  # the largest M the main path hands the kernels
 
 
-def random_m(n_words, n_pad, n_groups, dev, g):
-    """Random membership bits for n_groups groups; the sentinel item is empty."""
-    import torch
-
-    M = torch.randint(
-        -(2**31), 2**31, (n_words, n_pad), dtype=torch.int32, device=dev, generator=g
-    )
-    if n_groups % 32:
-        M[-1] &= (1 << (n_groups % 32)) - 1
-    M[:, 0] = 0
-    return M
-
-
-def random_w(n_pad, style, dev, g):
-    """int32 item weights: all ones, bp-like node lengths 1-16, or anything
-    below 2^31; the sentinel weighs 0."""
-    import torch
-
-    if style == "ones":
-        w = torch.ones(n_pad, dtype=torch.int32, device=dev)
-    else:
-        hi = 17 if style == "bp" else 2**31
-        w = torch.randint(1, hi, (n_pad,), dtype=torch.int32, device=dev, generator=g)
-    w[0] = 0
-    return w
-
-
 def phase_kernels(dev):
     """Kernel vs plain version at each shape; returns per-kernel results."""
     import torch
 
+    from panacus_torch.kernel_times import copies, event_ms, random_m, slope_ms
     from panacus_torch.ops import hist_kernels as hk
 
     g = torch.Generator(device=dev)
@@ -281,17 +244,21 @@ def phase_kernels(dev):
             fail(f"{label}: kernel != plain (hist err {err_h}, coverage err {err_c})")
         if want_h.sum() != W.sum(dtype=torch.int64):
             fail(f"{label}: histogram loses weight")
+        sets = copies((M, W))
         t = {
             "pt_fused_hist": (
-                time_ms(lambda: hk.fused_hist(M, W, n_bins), 20, flush),
-                time_ms(lambda: hk.fused_hist_ref(M, W, n_bins), 5, flush),
+                event_ms(lambda: hk.fused_hist(M, W, n_bins), 20, flush),
+                event_ms(lambda: hk.fused_hist_ref(M, W, n_bins), 5, flush),
+                slope_ms([lambda s=s: hk.fused_hist(s[0], s[1], n_bins) for s in sets]),
             ),
             "pt_coverage": (
-                time_ms(lambda: hk.coverage(M), 20, flush),
-                time_ms(lambda: hk.coverage_ref(M), 5, flush),
+                event_ms(lambda: hk.coverage(M), 20, flush),
+                event_ms(lambda: hk.coverage_ref(M), 5, flush),
+                slope_ms([lambda s=s: hk.coverage(s[0]) for s in sets]),
             ),
         }
-        for name, (ms, plain_ms) in t.items():
+        del sets
+        for name, (ms, plain_ms, slope) in t.items():
             # read M (and W) once, write the histograms or the coverage once;
             # per item a popcount and an add per word, an add per vector
             if name == "pt_fused_hist":
@@ -304,15 +271,17 @@ def phase_kernels(dev):
             print(
                 f"[kernels] {name} {label} ({n_words} x {n_pad}, {n_bins} bins, "
                 f"{n_vecs if name == 'pt_fused_hist' else 0} weight vectors): "
-                f"exact; kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), "
-                f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
-                f"({nbytes / 1e6:.1f} MB, {bound_by}), {bound_ms / ms:.3f} of it "
-                f"reached; library: none (torch has no popcount)"
+                f"exact; kernel {ms:.4f} ms by events ({nbytes / ms / 1e6:.1f} GB/s), "
+                f"{slope:.4f} ms by slope; plain {plain_ms:.4f} ms; bound "
+                f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, {bound_by}), "
+                f"{bound_ms / ms:.3f} of it reached by events, {bound_ms / slope:.3f} "
+                f"by slope; library: none (torch has no popcount)"
             )
             if i == MAIN_SHAPE:
                 res[name].update(
                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                    library_ms=None, at=f"{n_words}x{n_pad}", _bytes=nbytes,
+                    library_ms=None, slope_ms=slope, at=f"{n_words}x{n_pad}",
+                    _bytes=nbytes,
                 )
         del M, W, got_h, want_h, got_c, want_c
     return res
@@ -332,6 +301,18 @@ GROUP_SHAPES = [
 GROUP_MAIN = {"pt_ordered_growth": (1, (0.5, 1)), "pt_similarity": (0, None)}
 
 
+def ordered_bound(M, n_groups: int):
+    """(bound_ms, bound_by, bytes) of pt_ordered_growth on M: read M, W and
+    the thresholds once, write the curve once; a popcount per word and a
+    step per set bit of each item."""
+    from panacus_torch.ops import hist_kernels as hk
+
+    n_words, n_pad = M.shape
+    nbytes = (M.numel() + n_pad + n_groups) * 4 + n_groups * 8
+    ops = n_pad * n_words + int(hk.coverage(M).sum())
+    return (*bound(nbytes, ops, SCALAR_OPS), nbytes)
+
+
 def library_similarity(M, w, got, flush):
     """The yardstick for pt_similarity: one float64 torch.matmul of the
     unpacked P [32 n_words, items] against P * W over all items, the unpack
@@ -339,11 +320,12 @@ def library_similarity(M, w, got, flush):
     Returns (median ms, whether it equals the kernel's result)."""
     import torch
 
+    from panacus_torch.kernel_times import event_ms
     from panacus_torch.ops import group_kernels as gk
 
     P = gk._unpack(M, 32 * M.shape[0]).to(torch.float64)
     PW = P * w.to(torch.float64)
-    ms = time_ms(lambda: torch.matmul(P, PW.T), 3, flush)
+    ms = event_ms(lambda: torch.matmul(P, PW.T), 3, flush)
     same = torch.equal(torch.matmul(P, PW.T).to(torch.int64), got)
     del P, PW
     return ms, same
@@ -353,11 +335,12 @@ def phase_group_kernels(dev):
     """pt_ordered_growth and pt_similarity against their plain versions,
     exact, with their bounds and, for pt_similarity, the library call;
     returns per-kernel results."""
-    import numpy as np
     import torch
 
+    from panacus_torch.kernel_times import (
+        copies, event_ms, random_m, random_w, slope_ms, thresholds,
+    )
     from panacus_torch.ops import group_kernels as gk
-    from panacus_torch.ops import hist_kernels as hk
 
     g = torch.Generator(device=dev)
     g.manual_seed(2)
@@ -368,7 +351,7 @@ def phase_group_kernels(dev):
         err = int((got - want).abs().max()) if got.numel() else 0
         if err or not torch.equal(got, want):
             fail(f"{name} {label} {key}: kernel != plain (max abs err {err})")
-        ms, plain_ms = time_ms(fn, reps, flush), time_ms(plain, 3, flush)
+        ms, plain_ms = event_ms(fn, reps, flush), event_ms(plain, 3, flush)
         print(
             f"[kernels] {name} {label} {key}: exact; kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms"
@@ -380,8 +363,7 @@ def phase_group_kernels(dev):
         w = random_w(n_pad, wstyle, dev, g)
         label = f"{label} ({n_words} x {n_pad}, {n_groups} groups, {wstyle} weights)"
         for q, c in qcs:
-            thr_np = np.ceil(np.arange(1, n_groups + 1) * q).astype(np.int32)
-            thr = torch.from_numpy(thr_np).to(dev)
+            thr = thresholds(n_groups, q)
             got = gk.ordered_growth(M, w, thr, c)
             want = gk.ordered_growth_ref(M, w, thr, c)
             torch.cuda.synchronize()
@@ -391,22 +373,22 @@ def phase_group_kernels(dev):
                 lambda: gk.ordered_growth_ref(M, w, thr, c),
                 f"q={q} c={c}", 10,
             )
+            sets = copies((M, w))
+            slope = slope_ms([lambda s=s: gk.ordered_growth(s[0], s[1], thr, c) for s in sets])
+            del sets
+            bound_ms, bound_by, nbytes = ordered_bound(M, n_groups)
+            print(
+                f"[kernels] pt_ordered_growth {label} q={q} c={c}: {slope:.4f} ms "
+                f"by slope; bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, "
+                f"{bound_by}), {bound_ms / t[0]:.3f} of it reached by events, "
+                f"{bound_ms / slope:.3f} by slope; library: none (torch has no "
+                f"popcount)"
+            )
             if GROUP_MAIN["pt_ordered_growth"] == (i, (q, c)):
-                # read M, W and the thresholds once, write the curve once;
-                # a popcount per word and a step per set bit of each item
-                nbytes = (M.numel() + n_pad + n_groups) * 4 + n_groups * 8
-                ops = n_pad * n_words + int(hk.coverage(M).sum())
-                bound_ms, bound_by = bound(nbytes, ops, SCALAR_OPS)
-                print(
-                    f"[kernels] pt_ordered_growth {label} q={q} c={c}: bound "
-                    f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, {bound_by}), "
-                    f"{bound_ms / t[0]:.3f} of it reached; library: none (torch "
-                    f"has no popcount)"
-                )
                 res["pt_ordered_growth"].update(
                     ms=t[0], plain_ms=t[1], bound_ms=bound_ms, bound_by=bound_by,
-                    library_ms=None, at=f"{n_words}x{n_pad} q={q} c={c}",
-                    _bytes=nbytes,
+                    library_ms=None, slope_ms=slope,
+                    at=f"{n_words}x{n_pad} q={q} c={c}", _bytes=nbytes,
                 )
         if sim:
             # the wrapper reads max(w) itself here; the timed calls are given
@@ -419,7 +401,7 @@ def phase_group_kernels(dev):
                 lambda: gk.similarity(M, w, w_max),
                 lambda: gk.similarity_ref(M, w), "", 5,
             )
-            read_ms = time_ms(lambda: gk.similarity(M, w), 5, flush)
+            read_ms = event_ms(lambda: gk.similarity(M, w), 5, flush)
             lib_ms, lib_same = library_similarity(M, w, got, flush)
             # read M and W once, write S once; 2 operations per item and
             # group pair g <= h on each byte plane, on the int8 tensor cores
@@ -451,12 +433,9 @@ def bench_graph() -> str:
     bench.make_graph's), generated once into build/chip_smoke/ and reused."""
     from panacus_torch import testgraphs as tg
 
-    os.makedirs(WORK, exist_ok=True)
-    gfa = os.path.join(WORK, f"bench_v{tg.GEN_VERSION}_{tg.N_NODES}_{tg.N_PATHS}.gfa")
-    if not os.path.exists(gfa):
-        t0 = time.perf_counter()
-        tg.make_graph(gfa + ".tmp")
-        os.replace(gfa + ".tmp", gfa)
+    t0 = time.perf_counter()
+    gfa = tg.cached_graph(WORK)
+    if time.perf_counter() - t0 > 1:
         print(f"[main] generated {gfa} in {time.perf_counter() - t0:.1f} s")
     return gfa
 
@@ -484,6 +463,7 @@ def phase_main_path(dev):
     import numpy as np
 
     from panacus_torch import testgraphs as tg
+    from panacus_torch.kernel_times import capture
     from panacus_torch.ops import kernels
 
     gfa = bench_graph()
@@ -499,7 +479,8 @@ def phase_main_path(dev):
     masked = HISTGROWTH + ["-s", subset, gfa]
 
     kernels.reset_launches()
-    out_big, phases, wall = drive(unmasked, "cuda")
+    with capture() as calls:  # the arguments of each call, for phase 4b
+        out_big, phases, wall = drive(unmasked, "cuda")
     counts_unmasked = dict(kernels.launches)
     out_masked, phases_masked, wall_masked = drive(masked, "cuda")
     launches = dict(kernels.launches)
@@ -544,7 +525,8 @@ def phase_main_path(dev):
     if not np.array_equal(got, want):
         fail(f"small hist on cuda != numpy oracle:\n{got}\n{want}")
     print("[main] small hist -c all -S on cuda == numpy oracle")
-    return launches
+    # the edge pass: the largest M the path hands pt_fused_hist
+    return launches, max(calls["pt_fused_hist"], key=lambda a: a[0].shape[1])
 
 
 def check_ordered_table(out: str, n_groups: int, n_thresholds: int, what: str) -> str:
@@ -589,6 +571,7 @@ def phase_group_path(dev):
     import numpy as np
 
     from panacus_torch import testgraphs as tg
+    from panacus_torch.kernel_times import capture
     from panacus_torch.ops import kernels
 
     gfa = bench_graph()
@@ -603,7 +586,10 @@ def phase_group_path(dev):
     outs = []
     for what, argv in runs:
         before = dict(kernels.launches)
-        out, ph, wall = drive(argv, "cuda")
+        with capture() as calls:  # the arguments of each call, for phase 4b
+            out, ph, wall = drive(argv, "cuda")
+        if what == "ordered-histgrowth -c edge":
+            ordered_edge = calls["pt_ordered_growth"]
         delta = {k: kernels.launches[k] - before[k] for k in kernels.launches}
         outs.append((what, argv, out, delta))
         print(
@@ -656,7 +642,58 @@ def phase_group_path(dev):
     if not np.array_equal(got, counts[:, 1:].T):
         fail("small table -c node -S != numpy oracle")
     print("[group] small table -c node -S on cuda == cpu == numpy oracle")
-    return launches
+    return launches, ordered_edge
+
+
+def phase_path_kernels(dev, edge_hist, ordered_edge, res):
+    """pt_fused_hist and pt_ordered_growth on the arguments that phases 3
+    and 4 handed them (the path's own edge M, weights and thresholds):
+    exact against their plain versions, timed by events and by slope;
+    adds each one's numbers under "path" in res."""
+    import torch
+
+    from panacus_torch.kernel_times import ORDERED_QC, copies, event_ms, slope_ms
+    from panacus_torch.ops import group_kernels as gk
+    from panacus_torch.ops import hist_kernels as hk
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    M, W, n_bins = edge_hist
+    label = f"path edge M ({M.shape[0]} x {M.shape[1]}, {W.shape[0]} weight vector(s))"
+    got, want = hk.fused_hist(M, W, n_bins), hk.fused_hist_ref(M, W, n_bins)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"pt_fused_hist {label}: kernel != plain")
+    ms = event_ms(lambda: hk.fused_hist(M, W, n_bins), 20, flush)
+    slope = slope_ms([lambda s=s: hk.fused_hist(s[0], s[1], n_bins) for s in copies((M, W))])
+    nbytes = M.numel() * 4 + W.numel() * 4 + W.shape[0] * n_bins * 8
+    bound_ms, bound_by = bound(nbytes, M.shape[1] * (2 * M.shape[0] + W.shape[0]), SCALAR_OPS)
+    print(
+        f"[path] pt_fused_hist {label}: exact; {ms:.4f} ms by events, {slope:.4f} "
+        f"by slope; bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, {bound_by}), "
+        f"{bound_ms / slope:.3f} of it by slope"
+    )
+    res["pt_fused_hist"]["path"] = {"ms": ms, "slope_ms": slope, "bound_ms": bound_ms,
+                                    "at": f"{M.shape[0]}x{M.shape[1]}, {W.shape[0]} vector(s)"}
+    res["pt_ordered_growth"]["path"] = {}
+    if len(ordered_edge) != len(ORDERED_QC):
+        fail(f"ordered-histgrowth -c edge made {len(ordered_edge)} calls, not {len(ORDERED_QC)}")
+    for (q, c), (M, w, thr, c_min) in zip(ORDERED_QC, ordered_edge):
+        got, want = gk.ordered_growth(M, w, thr, c_min), gk.ordered_growth_ref(M, w, thr, c_min)
+        torch.cuda.synchronize()
+        if c_min != c or not torch.equal(got, want):
+            fail(f"pt_ordered_growth path edge M q={q} c={c}: kernel != plain")
+        ms = event_ms(lambda: gk.ordered_growth(M, w, thr, c_min), 10, flush)
+        slope = slope_ms([lambda s=s: gk.ordered_growth(s[0], s[1], thr, c_min)
+                          for s in copies((M, w))])
+        bound_ms, bound_by, nbytes = ordered_bound(M, thr.shape[0])
+        print(
+            f"[path] pt_ordered_growth path edge M ({M.shape[0]} x {M.shape[1]}) q={q} "
+            f"c={c}: exact; {ms:.4f} ms by events, {slope:.4f} by slope; bound "
+            f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, {bound_by}), "
+            f"{bound_ms / slope:.3f} of it by slope"
+        )
+        res["pt_ordered_growth"]["path"][f"q={q} c={c}"] = {
+            "ms": ms, "slope_ms": slope, "bound_ms": bound_ms}
 
 
 # phase 5: the probe path, at the probe's default shape (M 32 x 2^23)
@@ -703,6 +740,7 @@ def phase_probe(dev, smi):
     import torch
 
     from panacus_torch import probe
+    from panacus_torch.kernel_times import event_ms
     from panacus_torch.ops import kernels
 
     M, w = probe.make_inputs(dev, probe.N_WORDS, probe.N_ITEMS, 0)
@@ -749,7 +787,7 @@ def phase_probe(dev, smi):
     res = {}
     for name, main_variant in PROBE_MAIN.items():
         ms = med[main_variant] * 1e3
-        plain_ms = time_ms(lambda: probe.pass_fn(main_variant, M, w, plain=True)(0), 3, flush)
+        plain_ms = event_ms(lambda: probe.pass_fn(main_variant, M, w, plain=True)(0), 3, flush)
         work_bytes, ops, tensor_cores = probe.pass_work(main_variant, M, w)
         bound_ms, bound_by = bound(work_bytes, ops, INT8_TC_OPS if tensor_cores else SCALAR_OPS)
         print(
@@ -781,10 +819,12 @@ def main() -> int:
     smi = phase_env()
     res = phase_kernels(dev)
     res.update(phase_group_kernels(dev))
-    launches = phase_main_path(dev)
-    group_launches = phase_group_path(dev)
+    launches, edge_hist = phase_main_path(dev)
+    group_launches, ordered_edge = phase_group_path(dev)
     for name in ("pt_ordered_growth", "pt_similarity"):
         launches[name] = group_launches[name]
+    phase_path_kernels(dev, edge_hist, ordered_edge, res)
+    del edge_hist, ordered_edge
     probe_res, probe_launches, read_bps = phase_probe(dev, smi)
     res.update(probe_res)
     launches.update(probe_launches)

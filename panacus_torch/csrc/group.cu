@@ -17,16 +17,57 @@
 //   and cov_i >= c_min,
 // with cum_i(j) the number of present groups <= j and thr[g] =
 // ceil((g + 1) * quorum) from the host (never recomputed here in float32).
-// Whether item i counts changes only at its present groups, so a thread walks
-// the set bits of its item (__ffs) and records each switch as +W / -W in a
-// difference array over the groups; a second one-block kernel turns the
-// differences into out by a prefix sum. With quorum 0 that is one update per
-// item. What bounds it: one read of M (4 * n_words bytes per item, coalesced
-// along items) plus one step per set bit; the difference array is int64 in
-// shared memory, flushed with one global atomic per non-zero entry, or kept
-// in global memory where n_groups * 8 bytes exceed what a block may opt into.
-// The TPU version's [G, B] int32 temporaries, block-size policy and group cap
-// have no counterpart here.
+// Whether item i counts changes only at its present groups; each change is
+// +W / -W in a difference array over the groups, and out is its prefix sum.
+// What bounds it: one read of M (4 * n_words bytes an item) and the scan of
+// every item over every group. Walking the set bits of one item a thread
+// (__ffs) waits at each bit on a dependent load of thr[g]: 0.25-0.32 ms on
+// 3.6 M random items of 90 groups, of which shared int64 atomics (CAS
+// loops) on the difference array take at most 0.035 ms (H100 80GB HBM3,
+// 700 W; PERF.md). So nothing here walks bits. The design:
+// - Bit-sliced over items. A warp takes 1024 items a step of its grid
+//   stride, a lane 32 of them, 128 apart (eight 16-byte copies a word row,
+//   each reading 512 contiguous bytes across the warp), and transposes its
+//   32 x 32 bit block in registers (two rounds of byte permutes, three of
+//   shifts and masks), so that word b holds group 32 wd + b of its 32
+//   items, one bit each. Every counter is kept as bit planes over those 32
+//   items.
+// - The clamped thresholds step by 0 or 1 (ceil((g + 1) q) for q in
+//   [0, 1]; the wrapper rejects others), so an item at a present group
+//   counts when dif = cum - thr[g] >= 0: NB + 1 planes in two's complement,
+//   moved by p - step with one full adder a step (two logic operations a
+//   plane, NB = 7 up to 126 groups), the sign plane read off. No step
+//   branches, so the unrolled steps of a word row are one block of code.
+//   Thresholds are clamped to [0, n_groups + 1], the same decisions for
+//   cum in [1, n_groups].
+// - Where the chunks of 1024 items are too few to fill the card (many
+//   groups, few items), 2, 4 or 8 warps of a block share a chunk, each
+//   scanning a segment of its word rows: each first counts its items'
+//   present groups in its rows and the last of them, leaves both in its
+//   buffer, and after a barrier starts from the counts of the segments
+//   before its own (dif, and whether the item counted at its last present
+//   group); every segment's counts give the coverage.
+// - Each step leaves a lane's switches at its group in the warp's buffer
+//   in shared memory: with one weight on all the warp's items (unit
+//   counts), the count switched on less off; else the masks of the items
+//   switched on and off. After a word row lane l sums column l (each lane
+//   starting at its own column: no bank conflicts), weighing the switched
+//   items with the weights the warp keeps in shared memory, exact in
+//   int64, into the warp's own difference array in shared memory, no
+//   atomic. Up to 768 groups every warp has its own array; up to what a
+//   block may opt into, one block array takes the warps' sums with shared
+//   atomics; past that they go to global memory. Each block adds its sums
+//   to the global difference array.
+// - One launch: the last block to finish (a counter after __threadfence)
+//   takes the prefix sum into out and leaves the difference array and the
+//   counter zero for the next call.
+// On 3.6 M random items of 90 groups (H100 80GB HBM3, 700 W; PERF.md) it
+// takes about 0.057 ms at every quorum: some 0.030 reading M and the
+// weights, 0.020 the scan steps (at 128 registers a thread, two blocks of
+// 256 an SM), 0.003 the column sums, 0.002 the end; a coverage floor
+// above 1 adds 0.008 (a second read of M for the coverage).
+// The TPU version's [G, B] int32 temporaries, block-size policy and group
+// cap have no counterpart here.
 //
 // Similarity: S[g, h] = sum_i W[i] * P[g, i] * P[h, i], exact in int64,
 // where P[g, i] is bit g % 32 of M[g / 32, i]. With the weights cut into
@@ -78,9 +119,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kScanThreads = 1024;
-
 // similarity tiling
 constexpr int kSimWords = 4;               // word rows per tile side
 constexpr int kSimTile = 32 * kSimWords;   // 128 groups per tile side
@@ -91,92 +129,397 @@ constexpr int64_t kSimMaxSliceChunks = (int64_t)1 << 16;  // 2^23 items
 constexpr int kSimTileElems = kSimTile * kSimTile;
 constexpr int kSimSub = 32;                // reduce: 32 x 32 sub-tiles
 
-__device__ __forceinline__ void add_signed(unsigned long long* p, int64_t v) {
-  atomicAdd(p, (unsigned long long)v);  // two's complement: wraps to v's sum
+// ordered growth
+constexpr int kOgThreads = 256;
+constexpr int kOgWarps = kOgThreads / 32;
+constexpr int kOgPrivateBytes = 48 * 1024;  // per-warp arrays up to 768 groups
+constexpr unsigned kFull = 0xFFFFFFFFu;
+// per warp in shared memory: its switches of one word row (32 groups x
+// 32 lanes x on, off), its lanes' weights (32 rows of 32, padded to 33),
+// each lane's one weight
+constexpr int kOgBufInts = 32 * 64;
+constexpr int kOgWInts = 32 * 33;
+constexpr size_t kOgBufBytes = kOgWarps * (kOgBufInts + kOgWInts + 32) * sizeof(int);
+
+// Where the warps' sums go: each warp's own shared array, one block-shared
+// array (shared atomics), or the global difference array (atomics).
+enum OgTier { kOgPrivate = 0, kOgBlock = 1, kOgGlobal = 2 };
+
+// The 32 x 32 bit block x transposed in place: afterwards bit k of x[b] is
+// what bit b of x[k] was.
+__device__ __forceinline__ void transpose32(uint32_t (&x)[32]) {
+  // rounds 16 and 8 swap half words and bytes: one byte permute a word
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const uint32_t a = x[k], b = x[k + 16];
+    x[k] = __byte_perm(a, b, 0x5410);
+    x[k + 16] = __byte_perm(a, b, 0x7632);
+  }
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    if ((k & 8) == 0) {
+      const uint32_t a = x[k], b = x[k + 8];
+      x[k] = __byte_perm(a, b, 0x6240);
+      x[k + 8] = __byte_perm(a, b, 0x7351);
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < 3; ++l) {
+    const int j = 4 >> l;
+    const uint32_t m = j == 4 ? 0x0F0F0F0Fu : j == 2 ? 0x33333333u : 0x55555555u;
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      if ((k & j) == 0) {
+        const uint32_t t = ((x[k] >> j) ^ x[k + j]) & m;
+        x[k] ^= t << j;
+        x[k + j] ^= t;
+      }
+    }
+  }
 }
 
-__global__ void ordered_diff_kernel(const uint32_t* __restrict__ M,
-                                    int64_t n_words, int64_t n_items_pad,
-                                    int n_groups,
-                                    const int32_t* __restrict__ W,
-                                    const int32_t* __restrict__ thr, int c_min,
-                                    unsigned long long* diff,
-                                    int shared_diff) {
-  extern __shared__ unsigned long long sdiff[];
-  unsigned long long* acc = shared_diff ? sdiff : diff;
-  if (shared_diff) {
-    for (int k = threadIdx.x; k < n_groups; k += blockDim.x) sdiff[k] = 0ull;
-    __syncthreads();
-  }
-  // bits past n_groups in the last word are not groups
-  const uint32_t last_mask =
-      (n_groups % 32) ? ((1u << (n_groups % 32)) - 1u) : 0xFFFFFFFFu;
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n_items_pad; i += step) {
-    const int32_t w = __ldg(W + i);
-    if (w == 0) continue;
-    if (c_min > 1) {  // c_min <= 1 is implied by cum >= 1
-      int cov = 0;
-      for (int64_t wd = 0; wd < n_words; ++wd) {
-        uint32_t m = __ldg(M + wd * n_items_pad + i);
-        if (wd == n_words - 1) m &= last_mask;
-        cov += __popc(m);
-      }
-      if (cov < c_min) continue;
+// The 32 words of word row `row` of a lane's items: quads q0 + 32 j for j
+// < 8 (so each load of the warp reads 512 contiguous bytes), zero past the
+// last quad. Bit k = 4 j + s of the lane's masks is item 4 (q0 + 32 j) + s.
+__device__ __forceinline__ void load_words(const uint32_t* __restrict__ row,
+                                           int64_t q0, int64_t n_quads,
+                                           uint32_t (&x)[32]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (q0 + 32 * j < n_quads) {
+      v = __ldg(reinterpret_cast<const uint4*>(row) + q0 + 32 * j);
     }
-    int cum = 0, t = -1;
-    bool ok = false;
-    for (int64_t wd = 0; wd < n_words; ++wd) {
-      uint32_t m = __ldg(M + wd * n_items_pad + i);
-      if (wd == n_words - 1) m &= last_mask;
-      while (m) {
-        const int g = (int)(wd * 32) + __ffs(m) - 1;
-        m &= m - 1u;
-        ++cum;
-        t = max(t, __ldg(thr + g));
-        const bool now = cum >= t;
-        if (now != ok) {
-          add_signed(acc + g, now ? (int64_t)w : -(int64_t)w);
-          ok = now;
+    x[4 * j] = v.x;
+    x[4 * j + 1] = v.y;
+    x[4 * j + 2] = v.z;
+    x[4 * j + 3] = v.w;
+  }
+}
+
+__device__ __forceinline__ int clamp_thr(int32_t t, int n_groups) {
+  return t < 0 ? 0 : t > n_groups ? n_groups + 1 : t;
+}
+
+// The 32 scan steps of one word row (groups g0 .. g0 + gn - 1) of a
+// lane's items: x holds the transposed words, bit b of `one` says that the
+// clamped threshold steps by 1 into group g0 + b (else by 0). dif = cum -
+// thr[g] in NB + 1 planes moves by p - step with one full adder, and an
+// item at a present group counts when dif >= 0. Each step leaves the
+// lane's switches at its group in the warp's buffer: with one weight on
+// all the warp's items (kUni), the count of items switched on less those
+// switched off (buf[b * 32 + lane]); else the masks of the items switched
+// on and off (buf[b * 64 + lane], buf[b * 64 + 32 + lane]), which the
+// column sums weigh. No step branches.
+template <int NB, bool kUni>
+__device__ __forceinline__ void scan_word(const uint32_t (&x)[32], int gn,
+                                          uint32_t E, uint32_t one,
+                                          uint32_t (&dif)[NB + 1], uint32_t& ok,
+                                          int* buf) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int b = 0; b < 32; ++b) {
+    if (b < gn) {  // the same across the warp; bits past n_groups skipped
+      const uint32_t p = x[b] & E;
+      // dif += a, a = p - step: bit 0 of a is p ^ step, the bits above
+      // are step & ~p (a = -1 where the step is 1 and p is 0)
+      const uint32_t dm = (one >> b) & 1u ? kFull : 0u;
+      const uint32_t a = dm & ~p;
+      uint32_t carry = dif[0] & (p ^ dm);
+      dif[0] ^= p ^ dm;
+#pragma unroll
+      for (int i = 1; i <= NB; ++i) {
+        const uint32_t n = (dif[i] & a) | (carry & (dif[i] | a));
+        dif[i] ^= a ^ carry;
+        carry = n;
+      }
+      const uint32_t now = (ok & ~p) | (~dif[NB] & p);
+      const uint32_t sw = now ^ ok;
+      ok = now;
+      if constexpr (kUni) {
+        buf[b * 32 + lane] = __popc(sw & now) - __popc(sw & ~now);
+      } else {
+        buf[b * 64 + lane] = (int)(sw & now);
+        buf[b * 64 + 32 + lane] = (int)(sw & ~now);
+      }
+    }
+  }
+}
+
+// Segment seg's part of the exchange: what a lane's items hold in word
+// rows [r0, r1), into buf[k * 32 + lane] for item k: bits 16-31 the number
+// of present groups, bits 0-15 one past the last of them (0: none). Counts
+// stay below 2^16 (at most 65,534 groups).
+__device__ __forceinline__ void seg_counts(const uint32_t* __restrict__ M,
+                                           int64_t r0, int64_t r1,
+                                           int64_t n_words, int64_t n_items_pad,
+                                           int64_t q0, uint32_t last_mask,
+                                           int* buf) {
+  const int lane = threadIdx.x & 31;
+  const int64_t n_quads = n_items_pad / 4;
+  uint32_t st[32];
+#pragma unroll
+  for (int k = 0; k < 32; ++k) st[k] = 0u;
+  for (int64_t wd = r0; wd < r1; ++wd) {
+    uint32_t x[32];
+    load_words(M + wd * n_items_pad, q0, n_quads, x);
+    const uint32_t m = wd == n_words - 1 ? last_mask : kFull;
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      const uint32_t v = x[k] & m;
+      if (v) {
+        st[k] = (((st[k] >> 16) + __popc(v)) << 16) |
+                (uint32_t)(32 * wd + 32 - __clz(v));
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 32; ++k) buf[k * 32 + lane] = (int)st[k];
+}
+
+// The scan state of a lane's items where segment seg starts (word row r0),
+// from the exchange of the chunk's n_seg segments (segment s's buffer at
+// seg0 + s * stride): dif = cum - thr[32 r0 - 1] in planes, with cum the
+// present groups before r0; ok where the item counted at the last of
+// them. The items whose coverage (every segment's count) is below c_min
+// leave E.
+template <int NB>
+__device__ __forceinline__ void seg_start(const int* seg0, int stride, int seg,
+                                          int n_seg, int64_t r0, int n_groups,
+                                          const int32_t* __restrict__ thr,
+                                          int c_min, uint32_t& E,
+                                          uint32_t (&dif)[NB + 1],
+                                          uint32_t& ok) {
+  const int lane = threadIdx.x & 31;
+  const int t_prev = r0 > 0 ? clamp_thr(__ldg(thr + 32 * r0 - 1), n_groups) : 0;
+  for (int k = 0; k < 32; ++k) {
+    int cum = 0, last = 0, cov = 0;
+    for (int s = 0; s < n_seg; ++s) {
+      const uint32_t v = (uint32_t)seg0[s * stride + k * 32 + lane];
+      const int n = (int)(v >> 16), l = (int)(v & 0xFFFFu);
+      if (s < seg) {
+        cum += n;
+        last = l ? l : last;  // later segments hold later groups
+      }
+      cov += n;
+    }
+    if (cov < c_min) E &= ~(1u << k);
+    const int d = cum - t_prev;  // two's complement in NB + 1 bits
+#pragma unroll
+    for (int i = 0; i <= NB; ++i) dif[i] |= (uint32_t)((d >> i) & 1) << k;
+    if (last > 0 && cum >= clamp_thr(__ldg(thr + last - 1), n_groups)) {
+      ok |= 1u << k;
+    }
+  }
+  ok &= E;
+}
+
+// The scan of the grid's chunks of 1024 items (32 a lane) over the
+// groups; each warp adds its per-group sums into acc. Each chunk's word
+// rows are split between n_seg warps of one block (n_seg = 1, 2, 4 or 8):
+// segment seg scans rows [r0, r1) after an exchange through the warps'
+// buffers gives it the state at r0.
+template <int NB>
+__device__ __forceinline__ void ordered_scan(
+    const uint32_t* __restrict__ M, int64_t n_words, int64_t n_items_pad,
+    int n_groups, const int32_t* __restrict__ W, const int32_t* __restrict__ thr,
+    int c_min, int n_seg, int tier, unsigned long long* acc, int* buf,
+    int* wts, int* wus, int stride) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t n_quads = n_items_pad / 4;
+  const int64_t n_chunks = (n_quads + 255) / 256;
+  const uint32_t last_mask =
+      (n_groups % 32) ? ((1u << (n_groups % 32)) - 1u) : kFull;
+  const int seg = warp % n_seg, per_block = kOgWarps / n_seg;
+  const int64_t r0 = seg * n_words / n_seg, r1 = (seg + 1) * n_words / n_seg;
+  int* seg0 = buf - seg * stride;  // the buffer of the chunk's segment 0
+  // c is the same across the block, chunk across the warp
+  for (int64_t c = (int64_t)blockIdx.x * per_block; c < n_chunks;
+       c += (int64_t)gridDim.x * per_block) {
+    const int64_t chunk = c + warp / n_seg;
+    const int64_t q0 = chunk * 256 + lane;  // past n_quads for no chunk
+    // E: the items that can count (weight != 0); uni: they share weight wu
+    uint32_t E = 0u;
+    int32_t wu = 0;
+    bool uni = true;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (q0 + 32 * j < n_quads) {
+        const int4 w = __ldg(reinterpret_cast<const int4*>(W) + q0 + 32 * j);
+        const int32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          wts[lane * 33 + 4 * j + s] = ws[s];
+          if (ws[s] != 0) {
+            E |= 1u << (4 * j + s);
+            uni = uni && (wu == 0 || wu == ws[s]);
+            wu = ws[s];
+          }
         }
       }
     }
-  }
-  if (shared_diff) {
-    __syncthreads();
-    for (int k = threadIdx.x; k < n_groups; k += blockDim.x) {
-      const unsigned long long s = sdiff[k];
-      if (s != 0ull) atomicAdd(diff + k, s);
+    uint32_t dif[NB + 1];
+#pragma unroll
+    for (int i = 0; i <= NB; ++i) dif[i] = 0u;
+    uint32_t ok = 0u;
+    // a chunk's segments share its items, so E is the same across them
+    const bool live = __any_sync(kFull, E);
+    if (n_seg > 1) {  // the same across the block
+      if (live) seg_counts(M, r0, r1, n_words, n_items_pad, q0, last_mask, buf);
+      __syncthreads();
+      if (live) {
+        seg_start<NB>(seg0, stride, seg, n_seg, r0, n_groups, thr, c_min, E,
+                      dif, ok);
+      }
+      __syncthreads();  // every exchange read before a buffer is reused
+    } else if (c_min > 1 && live) {  // c_min <= 1 is implied by cum >= 1
+      // the coverage of items 2 h and 2 h + 1 in the halves of cov[h]
+      // (counts below 2^16)
+      uint32_t cov[16];
+#pragma unroll
+      for (int h = 0; h < 16; ++h) cov[h] = 0u;
+      for (int64_t wd = 0; wd < n_words; ++wd) {
+        uint32_t x[32];
+        load_words(M + wd * n_items_pad, q0, n_quads, x);
+        const uint32_t m = wd == n_words - 1 ? last_mask : kFull;
+#pragma unroll
+        for (int k = 0; k < 32; ++k) cov[k / 2] += __popc(x[k] & m) << (16 * (k & 1));
+      }
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        if (((cov[k / 2] >> (16 * (k & 1))) & 0xFFFFu) < (uint32_t)c_min) E &= ~(1u << k);
+      }
+    }
+    if (!__any_sync(kFull, E)) continue;
+    const bool all_uni = __all_sync(kFull, uni);
+    wus[lane] = wu;
+    // the clamped threshold of the group before the segment
+    int t_last = r0 > 0 ? clamp_thr(__ldg(thr + 32 * r0 - 1), n_groups) : 0;
+    for (int64_t wd = r0; wd < r1; ++wd) {
+      uint32_t x[32];
+      load_words(M + wd * n_items_pad, q0, n_quads, x);
+      transpose32(x);
+      const int g0 = (int)wd * 32;
+      const int gn = n_groups - g0 < 32 ? n_groups - g0 : 32;
+      // lane b: the clamped threshold of group g0 + b; `one`: the groups
+      // whose threshold steps by 1 from the group before
+      const int t_lane =
+          lane < gn ? clamp_thr(__ldg(thr + g0 + lane), n_groups) : 0;
+      const int t_prev = __shfl_up_sync(kFull, t_lane, 1);
+      const uint32_t one =
+          __ballot_sync(kFull, t_lane - (lane == 0 ? t_last : t_prev) == 1);
+      t_last = __shfl_sync(kFull, t_lane, gn - 1);
+      if (all_uni) {
+        scan_word<NB, true>(x, gn, E, one, dif, ok, buf);
+      } else {
+        scan_word<NB, false>(x, gn, E, one, dif, ok, buf);
+      }
+      __syncwarp();
+      if (lane < gn) {
+        // lane l sums group g0 + l over the 32 lanes, each lane starting
+        // at its own column (no bank conflicts): counts times the lanes'
+        // weights, or the weights of the switched items
+        long long s = 0;
+        if (all_uni) {
+#pragma unroll 8
+          for (int j = 0; j < 32; ++j) {
+            const int r = (j + lane) & 31;
+            s += (long long)wus[r] * buf[lane * 32 + r];
+          }
+        } else {
+          for (int j = 0; j < 32; ++j) {
+            const int r = (j + lane) & 31;
+            const uint32_t on = buf[lane * 64 + r], off = buf[lane * 64 + 32 + r];
+            for (uint32_t m = on | off; m; m &= m - 1u) {
+              const int k = __ffs(m) - 1;
+              const long long wk = wts[r * 33 + k];
+              s += (on >> k) & 1u ? wk : -wk;
+            }
+          }
+        }
+        if (s != 0) {
+          unsigned long long* a = acc + g0 + lane;
+          if (tier == kOgPrivate) {
+            *a += (unsigned long long)s;
+          } else {
+            atomicAdd(a, (unsigned long long)s);  // two's complement
+          }
+        }
+      }
+      __syncwarp();  // the buffer is read before the next word row
     }
   }
 }
 
-// out[j] = sum_{g <= j} diff[g], by one block: each thread sums a contiguous
-// chunk, the block scans the chunk sums, each thread writes its chunk.
-__global__ void __launch_bounds__(kScanThreads)
-    prefix_sum_kernel(const unsigned long long* __restrict__ diff, int n,
-                      long long* __restrict__ out) {
-  __shared__ unsigned long long part[kScanThreads];
-  const int chunk = (n + kScanThreads - 1) / kScanThreads;
-  const int lo = threadIdx.x * chunk;
-  const int hi = min(lo + chunk, n);
-  unsigned long long s = 0ull;
-  for (int k = lo; k < hi; ++k) s += diff[k];
-  part[threadIdx.x] = s;
+// diff: int64 [n_groups + 1], zero on entry (the last entry is the block
+// counter); the last block leaves it zero again.
+template <int NB>
+__global__ void __launch_bounds__(kOgThreads)
+    ordered_growth_kernel(const uint32_t* __restrict__ M, int64_t n_words,
+                          int64_t n_items_pad, int n_groups,
+                          const int32_t* __restrict__ W,
+                          const int32_t* __restrict__ thr, int c_min, int n_seg,
+                          int tier, unsigned long long* diff,
+                          long long* __restrict__ out) {
+  // dynamic shared memory: the difference arrays, then each warp's
+  // switch buffer, lane weights and one weight a lane
+  extern __shared__ unsigned long long sdiff[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_shared =
+      tier == kOgPrivate ? kOgWarps * n_groups : tier == kOgBlock ? n_groups : 0;
+  int* buf = reinterpret_cast<int*>(sdiff + n_shared) +
+             warp * (kOgBufInts + kOgWInts + 32);
+  int* wts = buf + kOgBufInts;
+  int* wus = wts + kOgWInts;
+  __shared__ unsigned long long wsum[kOgWarps];
+  __shared__ bool last;
+  for (int k = threadIdx.x; k < n_shared; k += blockDim.x) sdiff[k] = 0ull;
   __syncthreads();
-  for (int off = 1; off < kScanThreads; off <<= 1) {
-    const unsigned long long v =
-        threadIdx.x >= off ? part[threadIdx.x - off] : 0ull;
-    __syncthreads();
-    part[threadIdx.x] += v;
-    __syncthreads();
+  unsigned long long* acc = tier == kOgPrivate ? sdiff + warp * n_groups
+                            : tier == kOgBlock ? sdiff
+                                               : diff;
+  ordered_scan<NB>(M, n_words, n_items_pad, n_groups, W, thr, c_min, n_seg,
+                   tier, acc, buf, wts, wus, kOgBufInts + kOgWInts + 32);
+  __syncthreads();
+  if (tier != kOgGlobal) {
+    for (int g = threadIdx.x; g < n_groups; g += blockDim.x) {
+      unsigned long long s = sdiff[g];
+      if (tier == kOgPrivate) {
+        for (int w = 1; w < kOgWarps; ++w) s += sdiff[w * n_groups + g];
+      }
+      if (s != 0ull) atomicAdd(diff + g, s);
+    }
   }
-  unsigned long long run = part[threadIdx.x] - s;  // exclusive prefix
-  for (int k = lo; k < hi; ++k) {
-    run += diff[k];
-    out[k] = (long long)run;
+  __threadfence();  // this block's sums before its count
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(diff + n_groups, 1ull) == gridDim.x - 1;
   }
+  __syncthreads();
+  if (!last) return;
+  // out[j] = sum_{g <= j} diff[g]: each thread a contiguous chunk, the
+  // chunk sums scanned across the block
+  const int chunk = (n_groups + blockDim.x - 1) / blockDim.x;
+  const int lo = threadIdx.x * chunk;
+  const int hi = lo + chunk < n_groups ? lo + chunk : n_groups;
+  unsigned long long s = 0ull;
+  for (int g = lo; g < hi; ++g) s += __ldcg(diff + g);  // from L2
+  unsigned long long incl = s;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned long long v = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) wsum[warp] = incl;
+  __syncthreads();
+  unsigned long long run = incl - s;
+  for (int w = 0; w < warp; ++w) run += wsum[w];
+  for (int g = lo; g < hi; ++g) {
+    run += __ldcg(diff + g);
+    out[g] = (long long)run;
+    diff[g] = 0ull;
+  }
+  if (threadIdx.x == 0) diff[n_groups] = 0ull;
 }
 
 // One chunk of kSimK items of the tile pair's packed words and weights.
@@ -455,37 +798,55 @@ cudaError_t similarity_plan(int64_t n_words, int64_t n_items_pad, int n_planes,
 extern "C" {
 
 // out[j] for j < n_groups: the ordered growth of M under the per-position
-// thresholds thr (int32 [n_groups]) and coverage floor c_min. diff is int64
-// [n_groups] scratch that the caller zeroes; out is int64 [n_groups].
+// thresholds thr (int32 [n_groups] whose values clamped to [0, n_groups +
+// 1] step by 0 or 1 from 0; others give undefined results) and coverage
+// floor c_min, for 1 to 65,534 groups; n_items_pad is a multiple of 4 and M and W are
+// 16-byte aligned. diff is int64 scratch of n_groups + 1 entries, zero on
+// entry; the kernel leaves it zero. out is int64 [n_groups]. One launch.
 int pt_ordered_growth(const void* M, long long n_words, long long n_items_pad,
                       int n_groups, const void* W, const void* thr, int c_min,
                       void* diff, void* out, void* stream) {
-  if (n_groups < 1 || n_words != (n_groups + 31) / 32 || n_items_pad < 0) {
+  if (n_groups < 1 || n_groups > 65534 || n_words != (n_groups + 31) / 32 ||
+      n_items_pad < 0 || n_items_pad % 4 != 0 ||
+      ((uintptr_t)M | (uintptr_t)W) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   int optin = 0;
   cudaError_t e = smem_optin(&optin);
   if (e != cudaSuccess) return (int)e;
-  const size_t diff_bytes = (size_t)n_groups * sizeof(unsigned long long);
-  const int shared_diff = diff_bytes <= (size_t)optin;
-  const size_t smem = shared_diff ? diff_bytes : 0;
-  e = allow_smem((const void*)ordered_diff_kernel, smem);
+  const size_t bytes = (size_t)n_groups * sizeof(unsigned long long);
+  const int tier = kOgWarps * bytes <= (size_t)kOgPrivateBytes ? kOgPrivate
+                   : bytes + kOgBufBytes <= (size_t)optin      ? kOgBlock
+                                                               : kOgGlobal;
+  const size_t smem = kOgBufBytes + (tier == kOgPrivate ? kOgWarps * bytes
+                                     : tier == kOgBlock ? bytes
+                                                        : 0);
+  // bit planes for counts up to n_groups + 1
+  const void* kernel = n_groups < 127    ? (const void*)ordered_growth_kernel<7>
+                       : n_groups < 2047 ? (const void*)ordered_growth_kernel<11>
+                                         : (const void*)ordered_growth_kernel<16>;
+  e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (n_items_pad > 0) {
-    int blocks = 0;
-    e = grid_size((const void*)ordered_diff_kernel, kThreads, smem,
-                  n_items_pad, &blocks);
-    if (e != cudaSuccess) return (int)e;
-    ordered_diff_kernel<<<blocks, kThreads, smem, s>>>(
-        (const uint32_t*)M, n_words, n_items_pad, n_groups, (const int32_t*)W,
-        (const int32_t*)thr, c_min, (unsigned long long*)diff, shared_diff);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+  // the blocks resident at once; a chunk of 1024 items is a warp's work
+  int resident = 0;
+  e = grid_size(kernel, kOgThreads, smem, INT64_MAX / 2, &resident);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t n_chunks = (n_items_pad / 4 + 255) / 256;
+  // split each chunk's word rows between 2, 4 or 8 warps while the split
+  // chunks still fit in the resident warps at once and every segment keeps
+  // at least 4 word rows (its exchange costs about one)
+  int n_seg = 1;
+  while (n_seg < kOgWarps && n_chunks * 2 * n_seg <= (int64_t)resident * kOgWarps &&
+         n_words >= 8 * n_seg) {
+    n_seg *= 2;
   }
-  prefix_sum_kernel<<<1, kScanThreads, 0, s>>>(
-      (const unsigned long long*)diff, n_groups, (long long*)out);
-  return (int)cudaGetLastError();
+  const int64_t want = (n_chunks * n_seg + kOgWarps - 1) / kOgWarps;
+  int blocks = (int)(want < resident ? want : resident);
+  if (blocks < 1) blocks = 1;  // no items: the one block writes zeros
+  void* args[] = {(void*)&M, &n_words, &n_items_pad, &n_groups, (void*)&W,
+                  (void*)&thr, &c_min, &n_seg, (void*)&tier, &diff, &out};
+  return (int)cudaLaunchKernel(kernel, dim3(blocks), dim3(kOgThreads), args, smem,
+                               (cudaStream_t)stream);
 }
 
 // The int32 scratch elements that pt_similarity needs for this shape on the

@@ -137,10 +137,7 @@ class CountingEngine:
         g = np.arange(1, self.n_groups + 1, dtype=np.int64)
         thr = np.ceil(g * quorum_rel).astype(np.int32)
         out = group_kernels.ordered_growth(
-            self.M,
-            self._w_dev(weights),
-            torch.from_numpy(thr).to(self.device),
-            c_min,
+            self.M, self._w_dev(weights), torch.from_numpy(thr), c_min
         )
         return out.cpu().numpy()
 

@@ -14,8 +14,9 @@ never falls back from one to the other.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import kernels
@@ -46,7 +47,7 @@ def ordered_growth_ref(
     blocks whose weights are all zero add nothing and are skipped."""
     n_groups = thr.shape[0]
     out = torch.zeros(n_groups, dtype=torch.int64, device=M.device)
-    tv = thr.view(-1, 1)
+    tv = thr.to(M.device).view(-1, 1)
     step = _block_items(n_groups)
     for lo in range(0, M.shape[1], step):
         wb = w[lo : lo + step].to(torch.int64)
@@ -105,12 +106,63 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
+# pt_ordered_growth's bit planes hold counts below 2^16
+MAX_ORDERED_GROUPS = 65534
+# int64 scratch of pt_ordered_growth per (device, stream): its difference
+# array and block counter, zero between calls (the kernel leaves it so)
+_ordered_scratches: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+# checked device copies of the thresholds, by device and content (an
+# ordered run asks for the same few again and again; a copy per call would
+# wait on the stream, a check per call would cost more host time than the
+# kernel takes)
+_thresholds_on: Dict[Tuple[torch.device, bytes], torch.Tensor] = {}
+_THRESHOLD_COPIES = 64
+
+
+def _ordered_scratch(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    buf = _ordered_scratches.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int64, device=device)
+        _ordered_scratches[(device, stream)] = buf
+    return buf
+
+
+def thresholds_on(device: torch.device, thr: torch.Tensor) -> torch.Tensor:
+    """The host thresholds thr on `device`, checked and copied once per
+    content."""
+    key = (device, thr.numpy().tobytes())
+    dev = _thresholds_on.get(key)
+    if dev is None:
+        check_thresholds(thr)
+        if len(_thresholds_on) >= _THRESHOLD_COPIES:
+            _thresholds_on.clear()
+        dev = _thresholds_on[key] = thr.to(device)
+    return dev
+
+
+def check_thresholds(thr: torch.Tensor) -> None:
+    """thr (int32 [n_groups] on the host) clamped to [0, n_groups + 1] must
+    step by 0 or 1 from 0, as ceil((g + 1) * quorum) does for a quorum in
+    [0, 1]: the only thresholds pt_ordered_growth scans."""
+    n_groups = thr.shape[0]
+    steps = np.diff(np.clip(thr.numpy().astype(np.int64), 0, n_groups + 1), prepend=0)
+    bad = np.flatnonzero((steps != 0) & (steps != 1))
+    if bad.size:
+        raise ValueError(
+            f"thresholds must step by 0 or 1 (clamped to [0, {n_groups + 1}]); "
+            f"they step by {steps[bad[0]]} into group {bad[0]}"
+        )
+
+
 def ordered_growth(
     M: torch.Tensor, w: torch.Tensor, thr: torch.Tensor, c_min: int
 ) -> torch.Tensor:
-    """int64 [n_groups] ordered growth (pt_ordered_growth on CUDA). thr:
-    int32 [n_groups], thr[g] = ceil((g + 1) * quorum) computed on the host;
-    M must have exactly ceil(n_groups / 32) word rows."""
+    """int64 [n_groups] ordered growth (pt_ordered_growth on CUDA, one
+    launch). thr: int32 [n_groups] on the host, thr[g] = ceil((g + 1) *
+    quorum) for a quorum in [0, 1] (check_thresholds rejects any other
+    steps, on every device; on CUDA when thresholds_on first copies them);
+    M must have exactly ceil(n_groups / 32) word rows. On CUDA at most
+    MAX_ORDERED_GROUPS groups."""
     _check_m(M)
     _check_w(M, w)
     n_groups = thr.shape[0] if thr.dim() == 1 else -1
@@ -119,22 +171,30 @@ def ordered_growth(
         or n_groups < 1
         or M.shape[0] != (n_groups + 31) // 32
         or not thr.is_contiguous()
+        or thr.device.type != "cpu"
     ):
         raise ValueError(
-            f"thr must be a contiguous int32 [n_groups] tensor with "
+            f"thr must be a contiguous int32 [n_groups] tensor on the host with "
             f"ceil(n_groups / 32) == {M.shape[0]}, got {thr.dtype} "
-            f"{tuple(thr.shape)}"
+            f"{tuple(thr.shape)} on {thr.device}"
         )
-    if _on_cpu(M, w, thr):
+    if _on_cpu(M, w):
+        check_thresholds(thr)
         return ordered_growth_ref(M, w, thr, c_min)
+    if n_groups > MAX_ORDERED_GROUPS:
+        raise ValueError(
+            f"pt_ordered_growth takes at most {MAX_ORDERED_GROUPS} groups on "
+            f"CUDA, got {n_groups}"
+        )
     n_words, n_items_pad = M.shape
-    diff = torch.zeros(n_groups, dtype=torch.int64, device=M.device)
     out = torch.empty(n_groups, dtype=torch.int64, device=M.device)
-    stream = _cuda_args(M, w, thr, diff, out)
+    thr_dev = thresholds_on(M.device, thr)
+    stream = _cuda_args(M, w, thr_dev, out)
+    diff = _ordered_scratch(M.device, stream, n_groups + 1)
     with torch.cuda.device(M.device):
         kernels.launch(
             "pt_ordered_growth", M.data_ptr(), n_words, n_items_pad, n_groups,
-            w.data_ptr(), thr.data_ptr(), c_min, diff.data_ptr(), out.data_ptr(),
+            w.data_ptr(), thr_dev.data_ptr(), c_min, diff.data_ptr(), out.data_ptr(),
             stream,
         )
     return out

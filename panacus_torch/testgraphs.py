@@ -92,6 +92,18 @@ def make_graph(path: str) -> None:
     )
 
 
+def cached_graph(directory: str) -> str:
+    """The path of make_graph's graph at the current N_NODES and N_PATHS in
+    `directory`, generated there once and reused (the file name carries the
+    generator version and the size)."""
+    os.makedirs(directory, exist_ok=True)
+    gfa = os.path.join(directory, f"bench_v{GEN_VERSION}_{N_NODES}_{N_PATHS}.gfa")
+    if not os.path.exists(gfa):
+        make_graph(gfa + ".tmp")
+        os.replace(gfa + ".tmp", gfa)
+    return gfa
+
+
 def _write_dryrun_gfa(path: str):
     """Deterministic small GFA: DRYRUN_NODES integer-named segments, 8 paths
     (DRYRUN_SAMPLES samples x 2 haplotypes; haplotype 0 as a PanSN P line,

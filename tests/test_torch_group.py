@@ -281,6 +281,223 @@ def test_wrappers_reject_bad_operands():
         gk.ordered_growth(M, w, torch.zeros(70, dtype=torch.int32), 1)
     with pytest.raises(ValueError):  # float thresholds
         gk.ordered_growth(M, w, thr.float(), 1)
+    with pytest.raises(ValueError, match="on the host"):  # thresholds off the host
+        gk.ordered_growth(M, w, thr.to("meta"), 1)
+
+
+# -- pt_ordered_growth's bit-sliced scan, emulated -----------------------------
+
+FULL = 0xFFFFFFFF
+OG_WARPS = 8  # csrc/group.cu kOgWarps
+
+
+def _transpose32(x):
+    """csrc/group.cu:transpose32 on 32 int64 tensors of uint32 words:
+    afterwards bit k of x[b] is what bit b of x[k] was."""
+    x = list(x)
+    for j in (16, 8, 4, 2, 1):
+        m = {16: 0x0000FFFF, 8: 0x00FF00FF, 4: 0x0F0F0F0F, 2: 0x33333333, 1: 0x55555555}[j]
+        for k in range(32):
+            if k & j == 0:
+                t = ((x[k] >> j) ^ x[k + j]) & m
+                x[k] = x[k] ^ ((t << j) & FULL)
+                x[k + j] = x[k + j] ^ t
+    return x
+
+
+def _popc(x):
+    return ((x.unsqueeze(-1) >> torch.arange(32)) & 1).sum(-1)
+
+
+def _bit_length(x):
+    """One past the highest set bit of each uint32 word (0 for none)."""
+    return (((x.unsqueeze(-1) >> torch.arange(32)) & 1) * torch.arange(1, 33)).amax(-1)
+
+
+def _ordered_growth_bitsliced(M, w, thr, c_min, grid_blocks, n_seg=1):
+    """pt_ordered_growth's arithmetic in plain PyTorch (int64 tensors of
+    uint32 bit words), in the kernel's grouping: chunks of 1024 items, one
+    a warp, lanes of 32 interleaved items, the 32 x 32 transposes, dif = cum
+    - thr in NB + 1 bit planes moved by one full adder a step, the items
+    each lane switches on and off per group (counted times the lane's one
+    weight where it has one), the warp's int64 sum per group into its own
+    array over the block steps of grid_blocks blocks, the blocks' sums, the
+    prefix. With n_seg > 1 the word rows of a chunk are split between n_seg
+    warps of a block: each packs its items' present groups in its rows and
+    one past the last of them (count << 16 | last), and each starts from the
+    packed values of the segments before its own; coverage from them all."""
+    n_words, n_pad = M.shape
+    n_groups = thr.shape[0]
+    NB = 7 if n_groups < 127 else 11 if n_groups < 2047 else 16
+    # a warp takes 1024 items a step; bit k = 4 j + s of lane l holds item
+    # 128 j + 4 l + s of them (its loads read 512 contiguous bytes)
+    n_ch = (n_pad + 1023) // 1024
+    n_lb = 32 * n_ch
+    Mu = torch.zeros((n_words, n_ch * 1024), dtype=torch.int64)
+    Mu[:, :n_pad] = M.to(torch.int64) & FULL
+    W = torch.zeros(n_ch * 1024, dtype=torch.int64)
+    W[:n_pad] = w.to(torch.int64)
+    k = torch.arange(32)
+    item = (1024 * torch.arange(n_ch).view(-1, 1, 1) + 128 * (k >> 2).view(1, 1, 32)
+            + 4 * torch.arange(32).view(1, 32, 1) + (k & 3).view(1, 1, 32)).reshape(n_lb, 32)
+    words = Mu[:, item]
+    W = W[item]
+    bit = 1 << torch.arange(32, dtype=torch.int64)
+    E = ((W != 0).to(torch.int64) * bit).sum(1)
+    last = (1 << (n_groups % 32)) - 1 if n_groups % 32 else FULL
+    masked = [words[wd] & (last if wd == n_words - 1 else FULL) for wd in range(n_words)]
+    nz = W != 0
+    wu = torch.where(nz, W, 0).amax(1)
+    uni = (torch.where(nz, W, wu.unsqueeze(1)) == wu.unsqueeze(1)).all(1)
+    c = thr.to(torch.int64).clamp(0, n_groups + 1)
+    steps = c - torch.cat([torch.zeros(1, dtype=torch.int64), c[:-1]])
+    assert bool(((steps == 0) | (steps == 1)).all())  # what the wrapper lets through
+    bounds = [s * n_words // n_seg for s in range(n_seg + 1)]
+    packed = []  # per segment [n_lb, 32]: present groups << 16 | one past the last
+    for s in range(n_seg):
+        cnt = torch.zeros((n_lb, 32), dtype=torch.int64)
+        lst = torch.zeros((n_lb, 32), dtype=torch.int64)
+        for wd in range(bounds[s], bounds[s + 1]):
+            v = masked[wd]
+            cnt += _popc(v)
+            lst = torch.where(v != 0, 32 * wd + _bit_length(v), lst)
+        packed.append((cnt << 16) | lst)
+    cov = sum(p >> 16 for p in packed)
+    if n_seg > 1 or c_min > 1:
+        E &= ((cov >= c_min).to(torch.int64) * bit).sum(1)
+    per_block = OG_WARPS // n_seg
+    chunk = torch.arange(n_ch)
+    acc = torch.zeros((grid_blocks * OG_WARPS, n_groups), dtype=torch.int64)
+    for s in range(n_seg):
+        # the warp of segment s of each chunk, over the block steps
+        slot = ((chunk // per_block) % grid_blocks) * OG_WARPS + (chunk % per_block) * n_seg + s
+        cum = sum((packed[t] >> 16 for t in range(s)), torch.zeros((n_lb, 32), dtype=torch.int64))
+        lastp = torch.zeros((n_lb, 32), dtype=torch.int64)
+        for t in range(s):
+            lastp = torch.where(packed[t] & 0xFFFF != 0, packed[t] & 0xFFFF, lastp)
+        r0, r1 = bounds[s], bounds[s + 1]
+        d = cum - (int(c[32 * r0 - 1]) if r0 > 0 else 0)
+        dif = [(((d >> i) & 1) * bit).sum(1) for i in range(NB + 1)]
+        counted = (lastp > 0) & (cum >= c[(lastp - 1).clamp(min=0)])
+        ok = (counted.to(torch.int64) * bit).sum(1) & E
+        for wd in range(r0, r1):
+            x = _transpose32([words[wd, :, k] for k in range(32)])
+            for b in range(min(32, n_groups - 32 * wd)):
+                g = 32 * wd + b
+                p = x[b] & E
+                # dif += p - step, one full adder
+                dm = FULL if int(steps[g]) == 1 else 0
+                a = dm & (p ^ FULL)
+                carry = dif[0] & (p ^ dm)
+                dif[0] = dif[0] ^ p ^ dm
+                for i in range(1, NB + 1):
+                    n = (dif[i] & a) | (carry & (dif[i] | a))
+                    dif[i] = dif[i] ^ a ^ carry
+                    carry = n
+                now = (ok & (p ^ FULL)) | ((dif[NB] ^ FULL) & p)
+                sw = now ^ ok
+                ok = now
+                on, off = sw & now, sw & (now ^ FULL)
+                d_lane = (W * (((on.unsqueeze(1) >> torch.arange(32)) & 1)
+                               - ((off.unsqueeze(1) >> torch.arange(32)) & 1))).sum(1)
+                assert torch.equal(
+                    torch.where(uni, wu * (_popc(on) - _popc(off)), d_lane), d_lane
+                )
+                per_chunk = torch.zeros(n_ch, dtype=torch.int64).index_add_(
+                    0, torch.arange(n_lb) // 32, d_lane)
+                acc[:, g].index_add_(0, slot, per_chunk)
+    return acc.sum(0).cumsum(0)
+
+
+def _thresholds(n_groups, kind):
+    """int32 thresholds: ceil((g + 1) q) for a quorum, steps of 2-3 (q =
+    2.5, clamped past n_groups), or a saw that decreases."""
+    g = np.arange(1, n_groups + 1, dtype=np.int64)
+    if kind == "saw":
+        thr = (g % 7) * 3 - 2
+    else:
+        thr = np.ceil(g * float(kind))
+    return torch.from_numpy(thr.astype(np.int32))
+
+
+QUORUM_KINDS = ["0", "0.5", "1", "0.3"]
+# (n_groups, quorum, segments a chunk): every quorum up to 520 groups (NB =
+# 7 and 11), split where the rows allow (33 and 90 groups in 2, 520 in 4:
+# 4 + 4 + 4 + 5 rows); at 2100 groups (NB = 16, seconds a case here) one
+# case split 8 ways and one not
+BITSLICED_CASES = (
+    [(1, k, 1) for k in QUORUM_KINDS]
+    + [(g, k, s) for g in (33, 90) for k in QUORUM_KINDS for s in (1, 2)]
+    + [(520, k, s) for k in QUORUM_KINDS for s in (1, 4)]
+    + [(2100, "0.5", 8), (2100, "0.3", 1)]
+)
+
+
+@pytest.mark.parametrize("n_groups,kind,n_seg", BITSLICED_CASES)
+def test_ordered_growth_bitsliced_matches_plain(n_groups, kind, n_seg):
+    """The kernel's scan, emulated over 1500 items and a grid of 2 blocks
+    (chunks past the grid wrap to earlier warps), equals the plain version
+    exactly at every coverage floor; up to 90 groups also the JAX engine
+    (XLA on the CPU)."""
+    jeng, teng, M_np, rng = _engines(n_groups, sparse=n_groups % 2 == 0)
+    w = rng.integers(1, 1000, N_ITEMS + 1)
+    w[0] = 0
+    w[rng.integers(1, N_ITEMS, 200)] = 0
+    M = torch.from_numpy(M_np.copy().view(np.int32))
+    thr = _thresholds(n_groups, kind)
+    for c_min in (1, 2):
+        for wt in (torch.from_numpy(w.astype(np.int32)),
+                   torch.from_numpy((w > 0).astype(np.int32))):
+            got = _ordered_growth_bitsliced(M, wt, thr, c_min, grid_blocks=2, n_seg=n_seg)
+            assert torch.equal(got, gk.ordered_growth_ref(M, wt, thr, c_min)), (c_min,)
+        if n_groups <= 90:
+            pytest.importorskip("jax")
+            np.testing.assert_array_equal(
+                got.numpy(), jeng.ordered_growth((w > 0).astype(np.int64), float(kind), c_min)
+            )
+
+
+@pytest.mark.parametrize("kind", ["2.5", "saw", "negative"])
+def test_ordered_growth_takes_only_thresholds_that_step_by_0_or_1(kind):
+    """Thresholds whose clamped values step by 2 or more or fall are
+    rejected on every device; thresholds below 0 clamp to 0 and are taken."""
+    n_groups = 90
+    rng = np.random.default_rng(len(kind))
+    M = torch.from_numpy(rng.integers(0, 2**32, (3, 4096), dtype=np.uint32).view(np.int32))
+    w = torch.ones(4096, dtype=torch.int32)
+    thr = _thresholds(n_groups, "0.5" if kind == "negative" else kind)
+    if kind == "negative":
+        thr = thr - 40
+        assert torch.equal(gk.ordered_growth(M, w, thr, 1), gk.ordered_growth_ref(M, w, thr, 1))
+    else:
+        with pytest.raises(ValueError, match="step by 0 or 1"):
+            gk.ordered_growth(M, w, thr, 1)
+
+
+def test_kernel_times_captures_the_engines_thresholds():
+    """kernel_times times pt_ordered_growth on the thresholds the engine
+    makes: host int32 vectors that kernel_times.thresholds rebuilds."""
+    from panacus_torch import kernel_times as kt
+
+    _, teng, _, _ = _engines(90, sparse=True)
+    w = np.ones(N_ITEMS + 1, dtype=np.int64)
+    with kt.capture() as calls:
+        for q, c in kt.ORDERED_QC:
+            teng.ordered_growth(w, q, c)
+    assert len(calls["pt_ordered_growth"]) == len(kt.ORDERED_QC)
+    for (q, c), (_, _, thr, c_min) in zip(kt.ORDERED_QC, calls["pt_ordered_growth"]):
+        assert c_min == c and thr.device.type == "cpu"
+        assert torch.equal(thr, kt.thresholds(90, q))
+        gk.check_thresholds(thr)
+
+
+def test_transpose32_network():
+    rng = np.random.default_rng(32)
+    x = torch.from_numpy(rng.integers(0, 2**32, (32, 5), dtype=np.uint64).astype(np.int64))
+    y = _transpose32(list(x))
+    for b in range(32):
+        want = (((x >> b) & 1) << torch.arange(32).view(32, 1)).sum(0)
+        assert torch.equal(y[b], want)
 
 
 # -- on the card ---------------------------------------------------------------
@@ -301,11 +518,15 @@ def _thr(n_groups: int, q: float) -> np.ndarray:
     return np.ceil(np.arange(1, n_groups + 1) * q).astype(np.int32)
 
 
-# (n_groups, n_items_pad, sparse): the main path's width, a tail word, 4096
-# groups, and 30000 groups, whose int64 difference array (240 KB) exceeds the
-# shared memory a block may opt into: the kernel accumulates in global memory
-CUDA_ORDERED = [(90, 1 << 16, False), (33, 1 << 14, True), (4096, 1 << 14, False),
-                (4096, 1 << 14, True), (30000, 1 << 12, False)]
+# (n_groups, n_items_pad, sparse): the main path's width, a tail word, 512
+# groups (the per-warp difference arrays' tier; 16 chunks of 1024 items
+# split 4 ways), 1024 groups x 2^18 (one block-shared array; chunks split 8
+# ways), 4096 groups (split 8 ways), and 30000 groups, whose int64
+# difference array (240 KB) exceeds the shared memory a block may opt into:
+# the kernel accumulates in global memory
+CUDA_ORDERED = [(90, 1 << 16, False), (33, 1 << 14, True), (512, 1 << 14, False),
+                (1024, 1 << 18, True), (4096, 1 << 14, False), (4096, 1 << 14, True),
+                (30000, 1 << 12, False)]
 
 
 @pytest.mark.cuda
@@ -327,12 +548,64 @@ def test_ordered_growth_kernel_matches_plain_on_cuda(
     w_np[0] = 0
     w = _t(w_np, cuda_device)
     for q, c in [(0.0, 1), (0.5, 1), (1.0, 2), (0.3, 3)]:
-        thr = _t(_thr(n_groups, q), cuda_device)
+        thr = torch.from_numpy(_thr(n_groups, q))
         before = kernels.launches["pt_ordered_growth"]
         got = gk.ordered_growth(M, w, thr, c)
         torch.cuda.synchronize()
         assert kernels.launches["pt_ordered_growth"] == before + 1
         assert torch.equal(got, gk.ordered_growth_ref(M, w, thr, c)), (q, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["max", "max31"])
+def test_ordered_growth_one_switch_position_on_cuda(cuda_device, weights):
+    """Every item in every group: at q=0 and q=1 every item switches on at
+    group 0 and never off, so all of a warp's changes land on one entry,
+    whose sum (2^20 items of weights near 2^31) passes 2^32; one weight on
+    every item takes the count path, weights that differ the halves."""
+    n_groups, n_items_pad = 90, (1 << 20) + 1024
+    rng = np.random.default_rng(31)
+    M_np = np.zeros((3, n_items_pad), dtype=np.uint32)
+    _fill(M_np, n_groups)
+    if weights == "max":
+        w_np = np.full(n_items_pad, 2**31 - 1, dtype=np.int32)
+    else:
+        w_np = rng.integers(2**30, 2**31, n_items_pad).astype(np.int32)
+    w_np[0] = 0
+    M, w = _t(M_np, cuda_device), _t(w_np, cuda_device)
+    total = int(w_np.astype(np.int64).sum())
+    for q in (0.0, 1.0):
+        thr = torch.from_numpy(_thr(n_groups, q))
+        got = gk.ordered_growth(M, w, thr, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, gk.ordered_growth_ref(M, w, thr, 1))
+        assert int(got[0]) == int(got[-1]) == total >= 2**32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["saw", "2.5", "negative"])
+def test_ordered_growth_any_thresholds_on_cuda(cuda_device, kind):
+    """Thresholds that decrease or step by more than 1 are rejected before
+    any launch; thresholds below 0 clamp to 0 and equal the plain version."""
+    n_groups, n_items_pad = 90, 1 << 16
+    rng = np.random.default_rng(len(kind))
+    M_np = rng.integers(0, 2**32, size=(3, n_items_pad), dtype=np.uint32)
+    M_np &= rng.integers(0, 2**32, size=M_np.shape, dtype=np.uint32)
+    w_np = rng.integers(0, 1000, n_items_pad).astype(np.int32)
+    w_np[0] = 0
+    thr = _thresholds(n_groups, "0.5" if kind == "negative" else kind)
+    M, w = _t(M_np, cuda_device), _t(w_np, cuda_device)
+    before = kernels.launches["pt_ordered_growth"]
+    if kind != "negative":
+        with pytest.raises(ValueError, match="step by 0 or 1"):
+            gk.ordered_growth(M, w, thr, 1)
+        assert kernels.launches["pt_ordered_growth"] == before
+        return
+    thr = thr - 40
+    for c in (1, 3):
+        got = gk.ordered_growth(M, w, thr, c)
+        torch.cuda.synchronize()
+        assert torch.equal(got, gk.ordered_growth_ref(M, w, thr, c)), c
 
 
 # (n_groups, n_items_pad, weights): groups 1 to 4096 (one 128-group tile

@@ -148,6 +148,70 @@ def test_fused_hist_ref_past_tpu_limits(n_words, n_items, n_bins, n_vecs, style)
         assert int(got.sum()) >= 2**31
 
 
+HIST_THREADS, HIST_WARPS, MAX_STEPS = 256, 8, 256  # csrc/hist.cu
+
+
+def _fused_hist_limbs(M: torch.Tensor, W: torch.Tensor, n_bins: int, grid_blocks: int):
+    """fused_hist_warp_kernel's arithmetic in plain PyTorch: quad q goes
+    to thread q % (blocks * 256) of a grid of at least n_quads / (256 *
+    MAX_STEPS) blocks, and its 4 items' weights, as 16-bit halves, into
+    the 32-bit limb sums of that thread's warp (which must not leave 32
+    bits: lo unsigned, hi signed); the warps' limbs recombine in int64."""
+    n_vecs, n_items = W.shape
+    n_quads = n_items // 4
+    blocks = max(grid_blocks, -(-n_quads // (HIST_THREADS * MAX_STEPS)))
+    warp = (torch.arange(n_quads) % (blocks * HIST_THREADS)) // 32
+    warp = warp.repeat_interleave(4)
+    cov = hk.coverage_ref(M).long()
+    keep = cov < n_bins
+    n_warps = blocks * HIST_WARPS
+    out = torch.zeros((n_vecs, n_bins), dtype=torch.int64)
+    for v in range(n_vecs):
+        w = W[v].long()
+        key = (warp * n_bins + cov)[keep]
+        lo = torch.zeros(n_warps * n_bins, dtype=torch.int64).index_add_(0, key, (w & 0xFFFF)[keep])
+        hi = torch.zeros(n_warps * n_bins, dtype=torch.int64).index_add_(0, key, (w >> 16)[keep])
+        assert int(lo.max()) < 2**32 and -(2**31) <= int(hi.min()) <= int(hi.max()) < 2**31
+        out[v] = (lo + hi * 65536).view(n_warps, n_bins).sum(0)
+    return out
+
+
+# the cases whose histograms the per-warp limbs hold (n_vecs * n_bins * 64
+# bytes <= 48 KB)
+LIMB_CASES = [c for c in PALLAS_CASES + WIDE_CASES if c[2] * c[3] * 64 <= 48 * 1024]
+
+
+@pytest.mark.parametrize(
+    "n_words,n_items,n_bins,n_vecs,style", LIMB_CASES, ids=_ids(LIMB_CASES)
+)
+def test_fused_hist_limbs_match_plain_and_pallas(n_words, n_items, n_bins, n_vecs, style):
+    """The per-warp limb scheme, emulated on a grid of 1 block (so up to
+    MAX_STEPS steps a thread land in one warp's limbs), equals the plain
+    version and, on the TPU kernel's own cases, the Pallas kernel in
+    interpret mode."""
+    M, W = _inputs(n_words, n_items, n_bins, n_vecs, style)
+    got = _fused_hist_limbs(_t(M), _t(W), n_bins, grid_blocks=1)
+    assert torch.equal(got, hk.fused_hist_ref(_t(M), _t(W), n_bins))
+    if (n_words, n_items, n_bins, n_vecs, style) in PALLAS_CASES:
+        jax = pytest.importorskip("jax")
+        from panacus_tpu.ops import pallas_kernels as pk
+
+        want = pk.hist_pallas_host(jax.device_put(M), list(W), n_bins, interpret=True)
+        for v in range(n_vecs):
+            np.testing.assert_array_equal(got[v].numpy(), np.asarray(want[v]))
+
+
+def test_fused_hist_limbs_at_their_bound():
+    """One warp's limbs at their most: 2^18 items (256 steps of a 1-block
+    grid's threads) at weight 2^31 - 1, all in one bin."""
+    n_items = 1 << 18
+    M = torch.full((1, n_items), -1, dtype=torch.int32)
+    W = torch.full((1, n_items), 2**31 - 1, dtype=torch.int32)
+    got = _fused_hist_limbs(M, W, 34, grid_blocks=1)
+    assert int(got[0, 32]) == n_items * (2**31 - 1)
+    assert torch.equal(got, hk.fused_hist_ref(M, W, 34))
+
+
 def test_wrappers_reject_bad_operands():
     M = torch.zeros((2, 8), dtype=torch.int32)
     with pytest.raises(ValueError):
@@ -193,6 +257,43 @@ def test_kernels_match_plain_on_cuda(
         np.testing.assert_array_equal(
             got[v].cpu().numpy(), _oracle_hist(M_np, W_np[v], n_bins)
         )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_items", [1 << 20, (1 << 29) + 4096], ids=["2^20", "2^29"])
+def test_fused_hist_one_bin_max_weights_on_cuda(cuda_device, n_items):
+    """Every item in the same bin at weight 2^31 - 1, two vectors: each
+    warp's limb sums take their most; at 2^29 items a thread would take
+    more than 256 grid-stride steps on one wave of blocks, so the launch
+    adds blocks."""
+    n_words = 3 if n_items < 1 << 28 else 1
+    M = torch.full((n_words, n_items), -1, dtype=torch.int32, device=cuda_device)
+    M[:, -4096:] = 0
+    n_vecs = 2 if n_items < 1 << 28 else 1
+    W = torch.full((n_vecs, n_items), 2**31 - 1, dtype=torch.int32, device=cuda_device)
+    n_bins = 32 * n_words + 2
+    got = hk.fused_hist(M, W, n_bins)
+    torch.cuda.synchronize()
+    want = torch.zeros((n_vecs, n_bins), dtype=torch.int64, device=cuda_device)
+    want[:, 32 * n_words] = (n_items - 4096) * (2**31 - 1)
+    want[:, 0] = 4096 * (2**31 - 1)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_fused_hist_path_width_on_cuda(cuda_device):
+    """3 words, two vectors (ones and weights below 2^31), 2^22 items."""
+    rng = np.random.default_rng(22)
+    M_np = rng.integers(0, 2**32, size=(3, 1 << 22), dtype=np.uint32)
+    M_np[-1] &= (1 << 26) - 1
+    W_np = np.stack([np.ones(1 << 22, dtype=np.int32),
+                     rng.integers(0, 2**31, 1 << 22).astype(np.int32)])
+    M, W = _t(M_np).to(cuda_device), _t(W_np).to(cuda_device)
+    got = hk.fused_hist(M, W, 92)
+    torch.cuda.synchronize()
+    assert torch.equal(got, hk.fused_hist_ref(M, W, 92))
+    for v in range(2):
+        np.testing.assert_array_equal(got[v].cpu().numpy(), _oracle_hist(M_np, W_np[v], 92))
 
 
 @pytest.mark.cuda
