@@ -14,13 +14,15 @@ Phases, one or more lines each on stdout:
 2. kernels: each kernel (pt_fused_hist, pt_coverage, pt_ordered_growth,
    pt_similarity) against its plain PyTorch version on the card at the
    shapes of the paths below and beyond, exact int64 equality, median
-   times from CUDA events with L2 flushed and, for the first three, the
-   slope of chains of calls queued behind a device-side sleep
+   times from CUDA events with L2 flushed and the slope of chains of
+   calls queued behind a device-side sleep
    (panacus_torch.kernel_times.slope_ms: launch latency off the clock),
    beside the kernel's bound (the larger of its bytes over 3.35 TB/s and
    its operations over the card's peak for their type) and, for
    pt_similarity, beside one float64 torch.matmul of the unpacked P
    against P * W (library_ms, the yardstick; the port never calls it).
+   pt_ordered_growth also runs past 65,534 groups (70,000 groups, its
+   31-plane tier), exact against its plain version.
 3. main path: `histgrowth -c all -H -q 0,0.5,1.0 -l 0,1,2` through
    panacus_torch's CLI on cuda, on the panacus_torch.testgraphs.make_graph
    graph at its default size (900k nodes, 3.6M edges, 90 haplotype groups,
@@ -39,9 +41,9 @@ Phases, one or more lines each on stdout:
    equal the port's run on the CPU; a small ordered run and a small
    coverage table must equal numpy oracles.
 4b. path kernels: the arguments that phases 3 and 4 handed
-   pt_fused_hist (the unmasked edge pass) and pt_ordered_growth (the
-   three thresholds of ordered-histgrowth -c edge), captured during those
-   runs: each kernel against its plain version on them, exact, timed by
+   pt_fused_hist (the unmasked edge pass), pt_ordered_growth (the three
+   thresholds of ordered-histgrowth -c edge) and pt_similarity
+   (similarity -c node), captured during those runs: each kernel against its plain version on them, exact, timed by
    events and by slope, beside its bound.
 5. probe: the raw-read control and the hist-formulation probes
    (csrc/probe.cu: pt_xor_fold, pt_word_fold, pt_limb_hist), every route
@@ -295,6 +297,8 @@ GROUP_SHAPES = [
     ("1024 groups", 32, 1 << 20, 1024, "max31", [(0.0, 1), (0.5, 2)], True),
     ("4096 groups, items cut to 2^18", 128, 1 << 18, 4096, "max31", [(0.0, 1), (0.5, 2)], False),
     ("4096 groups, items cut to 2^16", 128, 1 << 16, 4096, "max31", [], True),
+    ("70,000 groups, items cut to 2^10", 2188, 1 << 10, 70_000, "max31",
+     [(0.0, 1), (0.5, 2)], False),
 ]
 # the shapes whose times go into the kernels line: the largest M that the
 # group path hands each kernel (ordered -c edge; similarity -c node|bp)
@@ -402,6 +406,8 @@ def phase_group_kernels(dev):
                 lambda: gk.similarity_ref(M, w), "", 5,
             )
             read_ms = event_ms(lambda: gk.similarity(M, w), 5, flush)
+            slope = slope_ms([lambda s=s: gk.similarity(s[0], s[1], w_max)
+                              for s in copies((M, w))])
             lib_ms, lib_same = library_similarity(M, w, got, flush)
             # read M and W once, write S once; 2 operations per item and
             # group pair g <= h on each byte plane, on the int8 tensor cores
@@ -415,13 +421,15 @@ def phase_group_kernels(dev):
                 f"the kernel), kernel {lib_ms / t[0]:.2f}x faster; bound "
                 f"{bound_ms:.4f} ms ({planes} byte planes, {ops / 1e12:.3f} "
                 f"int8 TOP, {nbytes / 1e6:.1f} MB, {bound_by}), "
-                f"{bound_ms / t[0]:.3f} of it reached; with the wrapper's own "
-                f"read of max(w) {read_ms:.4f} ms"
+                f"{bound_ms / t[0]:.3f} of it reached by events, "
+                f"{bound_ms / slope:.3f} by slope ({slope:.4f} ms); with the "
+                f"wrapper's own read of max(w) {read_ms:.4f} ms"
             )
             if GROUP_MAIN["pt_similarity"][0] == i:
                 res["pt_similarity"].update(
                     ms=t[0], plain_ms=t[1], bound_ms=bound_ms, bound_by=bound_by,
-                    library_ms=lib_ms, at=f"{n_words}x{n_pad}", _bytes=nbytes,
+                    library_ms=lib_ms, slope_ms=slope, at=f"{n_words}x{n_pad}",
+                    _bytes=nbytes,
                 )
             del got, want
         del M, w
@@ -590,6 +598,8 @@ def phase_group_path(dev):
             out, ph, wall = drive(argv, "cuda")
         if what == "ordered-histgrowth -c edge":
             ordered_edge = calls["pt_ordered_growth"]
+        if what == "similarity -c node":
+            similarity_node = calls["pt_similarity"]
         delta = {k: kernels.launches[k] - before[k] for k in kernels.launches}
         outs.append((what, argv, out, delta))
         print(
@@ -642,14 +652,15 @@ def phase_group_path(dev):
     if not np.array_equal(got, counts[:, 1:].T):
         fail("small table -c node -S != numpy oracle")
     print("[group] small table -c node -S on cuda == cpu == numpy oracle")
-    return launches, ordered_edge
+    return launches, ordered_edge, similarity_node
 
 
-def phase_path_kernels(dev, edge_hist, ordered_edge, res):
-    """pt_fused_hist and pt_ordered_growth on the arguments that phases 3
-    and 4 handed them (the path's own edge M, weights and thresholds):
-    exact against their plain versions, timed by events and by slope;
-    adds each one's numbers under "path" in res."""
+def phase_path_kernels(dev, edge_hist, ordered_edge, similarity_node, res):
+    """pt_fused_hist, pt_ordered_growth and pt_similarity on the arguments
+    that phases 3 and 4 handed them (the path's own edge M, weights and
+    thresholds; the node M and its weights): exact against their plain
+    versions, timed by events and by slope; adds each one's numbers under
+    "path" in res."""
     import torch
 
     from panacus_torch.kernel_times import ORDERED_QC, copies, event_ms, slope_ms
@@ -694,6 +705,27 @@ def phase_path_kernels(dev, edge_hist, ordered_edge, res):
         )
         res["pt_ordered_growth"]["path"][f"q={q} c={c}"] = {
             "ms": ms, "slope_ms": slope, "bound_ms": bound_ms}
+    if len(similarity_node) != 1:
+        fail(f"similarity -c node made {len(similarity_node)} calls, not 1")
+    M, w, w_max = similarity_node[0]
+    got, want = gk.similarity(M, w, w_max), gk.similarity_ref(M, w)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail("pt_similarity path node M: kernel != plain")
+    ms = event_ms(lambda: gk.similarity(M, w, w_max), 10, flush)
+    slope = slope_ms([lambda s=s: gk.similarity(s[0], s[1], w_max) for s in copies((M, w))])
+    planes = gk.n_planes(int(w.max()) if w_max is None else w_max)
+    nbytes = (M.numel() + M.shape[1]) * 4 + got.numel() * 8
+    ops = 2 * (32 * M.shape[0]) * (32 * M.shape[0] + 1) // 2 * M.shape[1] * planes
+    bound_ms, bound_by = bound(nbytes, ops, INT8_TC_OPS)
+    print(
+        f"[path] pt_similarity path node M ({M.shape[0]} x {M.shape[1]}, {planes} byte "
+        f"planes): exact; {ms:.4f} ms by events, {slope:.4f} by slope; bound "
+        f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, {bound_by}), {bound_ms / slope:.3f} "
+        f"of it by slope"
+    )
+    res["pt_similarity"]["path"] = {"ms": ms, "slope_ms": slope, "bound_ms": bound_ms,
+                                    "at": f"{M.shape[0]}x{M.shape[1]}, {planes} planes"}
 
 
 # phase 5: the probe path, at the probe's default shape (M 32 x 2^23)
@@ -820,11 +852,11 @@ def main() -> int:
     res = phase_kernels(dev)
     res.update(phase_group_kernels(dev))
     launches, edge_hist = phase_main_path(dev)
-    group_launches, ordered_edge = phase_group_path(dev)
+    group_launches, ordered_edge, similarity_node = phase_group_path(dev)
     for name in ("pt_ordered_growth", "pt_similarity"):
         launches[name] = group_launches[name]
-    phase_path_kernels(dev, edge_hist, ordered_edge, res)
-    del edge_hist, ordered_edge
+    phase_path_kernels(dev, edge_hist, ordered_edge, similarity_node, res)
+    del edge_hist, ordered_edge, similarity_node
     probe_res, probe_launches, read_bps = phase_probe(dev, smi)
     res.update(probe_res)
     launches.update(probe_launches)

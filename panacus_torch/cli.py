@@ -229,8 +229,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser(
         "ordered-histgrowth",
-        help="Calculate growth curve based on group file order (on cuda at "
-        "most 65,534 groups)",
+        help="Calculate growth curve based on group file order",
     )
     _add_common_graph_args(p)
     p.add_argument("-O", "--order", metavar="FILE", help=_ORDER_HELP)

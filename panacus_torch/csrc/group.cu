@@ -66,8 +66,11 @@
 // weights, 0.020 the scan steps (at 128 registers a thread, two blocks of
 // 256 an SM), 0.003 the column sums, 0.002 the end; a coverage floor
 // above 1 adds 0.008 (a second read of M for the coverage).
-// The TPU version's [G, B] int32 temporaries, block-size policy and group
-// cap have no counterpart here.
+// Counts past 65,534 groups take the NB = 31 instantiation (counts and
+// the last present group as two ints an item in the exchange, one coverage
+// word an item); the 16-plane one keeps its packed 16-bit counts below.
+// The TPU version's [G, B] int32 temporaries and block-size policy have no
+// counterpart here.
 //
 // Similarity: S[g, h] = sum_i W[i] * P[g, i] * P[h, i], exact in int64,
 // where P[g, i] is bit g % 32 of M[g / 32, i]. With the weights cut into
@@ -134,6 +137,8 @@ constexpr int kOgThreads = 256;
 constexpr int kOgWarps = kOgThreads / 32;
 constexpr int kOgPrivateBytes = 48 * 1024;  // per-warp arrays up to 768 groups
 constexpr unsigned kFull = 0xFFFFFFFFu;
+// the largest group count: 32 n_words and n_groups + 1 stay int32
+constexpr int kOgMaxGroups = 0x7FFFFFFF - 32;
 // per warp in shared memory: its switches of one word row (32 groups x
 // 32 lanes x on, off), its lanes' weights (32 rows of 32, padded to 33),
 // each lane's one weight
@@ -247,9 +252,12 @@ __device__ __forceinline__ void scan_word(const uint32_t (&x)[32], int gn,
 }
 
 // Segment seg's part of the exchange: what a lane's items hold in word
-// rows [r0, r1), into buf[k * 32 + lane] for item k: bits 16-31 the number
-// of present groups, bits 0-15 one past the last of them (0: none). Counts
-// stay below 2^16 (at most 65,534 groups).
+// rows [r0, r1). Up to 65,534 groups (kWide false) one int an item,
+// buf[k * 32 + lane] for item k: bits 16-31 the number of present groups,
+// bits 0-15 one past the last of them (0: none). Past that (kWide) two:
+// the count in buf[k * 32 + lane], one past the last in buf[1024 + k * 32 +
+// lane] (the warp's buffer holds 2048 ints).
+template <bool kWide>
 __device__ __forceinline__ void seg_counts(const uint32_t* __restrict__ M,
                                            int64_t r0, int64_t r1,
                                            int64_t n_words, int64_t n_items_pad,
@@ -258,8 +266,11 @@ __device__ __forceinline__ void seg_counts(const uint32_t* __restrict__ M,
   const int lane = threadIdx.x & 31;
   const int64_t n_quads = n_items_pad / 4;
   uint32_t st[32];
+  uint32_t lst[kWide ? 32 : 1];
 #pragma unroll
   for (int k = 0; k < 32; ++k) st[k] = 0u;
+#pragma unroll
+  for (int k = 0; k < (kWide ? 32 : 1); ++k) lst[k] = 0u;
   for (int64_t wd = r0; wd < r1; ++wd) {
     uint32_t x[32];
     load_words(M + wd * n_items_pad, q0, n_quads, x);
@@ -268,13 +279,21 @@ __device__ __forceinline__ void seg_counts(const uint32_t* __restrict__ M,
     for (int k = 0; k < 32; ++k) {
       const uint32_t v = x[k] & m;
       if (v) {
-        st[k] = (((st[k] >> 16) + __popc(v)) << 16) |
-                (uint32_t)(32 * wd + 32 - __clz(v));
+        const uint32_t last = (uint32_t)(32 * wd + 32 - __clz(v));
+        if constexpr (kWide) {
+          st[k] += __popc(v);
+          lst[k] = last;
+        } else {
+          st[k] = (((st[k] >> 16) + __popc(v)) << 16) | last;
+        }
       }
     }
   }
 #pragma unroll
-  for (int k = 0; k < 32; ++k) buf[k * 32 + lane] = (int)st[k];
+  for (int k = 0; k < 32; ++k) {
+    buf[k * 32 + lane] = (int)st[k];
+    if constexpr (kWide) buf[1024 + k * 32 + lane] = (int)lst[k];
+  }
 }
 
 // The scan state of a lane's items where segment seg starts (word row r0),
@@ -295,8 +314,15 @@ __device__ __forceinline__ void seg_start(const int* seg0, int stride, int seg,
   for (int k = 0; k < 32; ++k) {
     int cum = 0, last = 0, cov = 0;
     for (int s = 0; s < n_seg; ++s) {
-      const uint32_t v = (uint32_t)seg0[s * stride + k * 32 + lane];
-      const int n = (int)(v >> 16), l = (int)(v & 0xFFFFu);
+      const int* b = seg0 + s * stride + k * 32 + lane;
+      int n, l;
+      if constexpr (NB > 16) {
+        n = b[0];
+        l = b[1024];
+      } else {
+        n = (int)((uint32_t)b[0] >> 16);
+        l = b[0] & 0xFFFF;
+      }
       if (s < seg) {
         cum += n;
         last = l ? l : last;  // later segments hold later groups
@@ -365,7 +391,7 @@ __device__ __forceinline__ void ordered_scan(
     // a chunk's segments share its items, so E is the same across them
     const bool live = __any_sync(kFull, E);
     if (n_seg > 1) {  // the same across the block
-      if (live) seg_counts(M, r0, r1, n_words, n_items_pad, q0, last_mask, buf);
+      if (live) seg_counts<(NB > 16)>(M, r0, r1, n_words, n_items_pad, q0, last_mask, buf);
       __syncthreads();
       if (live) {
         seg_start<NB>(seg0, stride, seg, n_seg, r0, n_groups, thr, c_min, E,
@@ -373,21 +399,30 @@ __device__ __forceinline__ void ordered_scan(
       }
       __syncthreads();  // every exchange read before a buffer is reused
     } else if (c_min > 1 && live) {  // c_min <= 1 is implied by cum >= 1
-      // the coverage of items 2 h and 2 h + 1 in the halves of cov[h]
-      // (counts below 2^16)
-      uint32_t cov[16];
+      // the coverage of item k: up to 65,534 groups, items 2 h and 2 h + 1
+      // in the 16-bit halves of cov[h]; past that, one word an item
+      constexpr int kCov = NB > 16 ? 32 : 16;
+      uint32_t cov[kCov];
 #pragma unroll
-      for (int h = 0; h < 16; ++h) cov[h] = 0u;
+      for (int h = 0; h < kCov; ++h) cov[h] = 0u;
       for (int64_t wd = 0; wd < n_words; ++wd) {
         uint32_t x[32];
         load_words(M + wd * n_items_pad, q0, n_quads, x);
         const uint32_t m = wd == n_words - 1 ? last_mask : kFull;
 #pragma unroll
-        for (int k = 0; k < 32; ++k) cov[k / 2] += __popc(x[k] & m) << (16 * (k & 1));
+        for (int k = 0; k < 32; ++k) {
+          if constexpr (NB > 16) {
+            cov[k] += __popc(x[k] & m);
+          } else {
+            cov[k / 2] += __popc(x[k] & m) << (16 * (k & 1));
+          }
+        }
       }
 #pragma unroll
       for (int k = 0; k < 32; ++k) {
-        if (((cov[k / 2] >> (16 * (k & 1))) & 0xFFFFu) < (uint32_t)c_min) E &= ~(1u << k);
+        const uint32_t ck =
+            NB > 16 ? cov[k % kCov] : (cov[k / 2] >> (16 * (k & 1))) & 0xFFFFu;
+        if (ck < (uint32_t)c_min) E &= ~(1u << k);
       }
     }
     if (!__any_sync(kFull, E)) continue;
@@ -800,13 +835,14 @@ extern "C" {
 // out[j] for j < n_groups: the ordered growth of M under the per-position
 // thresholds thr (int32 [n_groups] whose values clamped to [0, n_groups +
 // 1] step by 0 or 1 from 0; others give undefined results) and coverage
-// floor c_min, for 1 to 65,534 groups; n_items_pad is a multiple of 4 and M and W are
-// 16-byte aligned. diff is int64 scratch of n_groups + 1 entries, zero on
-// entry; the kernel leaves it zero. out is int64 [n_groups]. One launch.
+// floor c_min, for 1 to kOgMaxGroups groups; n_items_pad is a multiple of 4
+// and M and W are 16-byte aligned. diff is int64 scratch of n_groups + 1
+// entries, zero on entry; the kernel leaves it zero. out is int64
+// [n_groups]. One launch.
 int pt_ordered_growth(const void* M, long long n_words, long long n_items_pad,
                       int n_groups, const void* W, const void* thr, int c_min,
                       void* diff, void* out, void* stream) {
-  if (n_groups < 1 || n_groups > 65534 || n_words != (n_groups + 31) / 32 ||
+  if (n_groups < 1 || n_groups > kOgMaxGroups || n_words != (n_groups + 31) / 32 ||
       n_items_pad < 0 || n_items_pad % 4 != 0 ||
       ((uintptr_t)M | (uintptr_t)W) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
@@ -821,10 +857,11 @@ int pt_ordered_growth(const void* M, long long n_words, long long n_items_pad,
   const size_t smem = kOgBufBytes + (tier == kOgPrivate ? kOgWarps * bytes
                                      : tier == kOgBlock ? bytes
                                                         : 0);
-  // bit planes for counts up to n_groups + 1
-  const void* kernel = n_groups < 127    ? (const void*)ordered_growth_kernel<7>
-                       : n_groups < 2047 ? (const void*)ordered_growth_kernel<11>
-                                         : (const void*)ordered_growth_kernel<16>;
+  // bit planes for counts up to n_groups + 1 (NB = 31: any int32 count)
+  const void* kernel = n_groups < 127     ? (const void*)ordered_growth_kernel<7>
+                       : n_groups < 2047  ? (const void*)ordered_growth_kernel<11>
+                       : n_groups < 65535 ? (const void*)ordered_growth_kernel<16>
+                                          : (const void*)ordered_growth_kernel<31>;
   e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   // the blocks resident at once; a chunk of 1024 items is a warp's work

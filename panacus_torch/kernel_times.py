@@ -1,6 +1,6 @@
-"""Kernel times on the card: pt_fused_hist, pt_coverage and
-pt_ordered_growth of this checkout, alone or in turns with another build of
-the same C interface.
+"""Kernel times on the card: pt_fused_hist, pt_coverage,
+pt_ordered_growth, pt_similarity and pt_limb_hist of this checkout, alone or
+in turns with another build of the same C interface.
 
     python -m panacus_torch.kernel_times [--other DIR] [--graph] [--rounds R]
                                          [--kernels NAME ...]
@@ -20,17 +20,24 @@ as chip_smoke.py makes them):
   917,504) with bp-like weights at the same three (quorum, floor), 1024
   groups x 2^20, 4096 groups x 2^18 and 30,000 groups x 2^16 items with
   weights below 2^31 at (0, 1) and (0.5, 2)
+  pt_similarity on the node M's width with bp-like weights (max(w) given,
+  as the engine gives it) and on 1024 groups x 2^20 with weights below 2^31
+  pt_limb_hist on the probe's inputs (panacus_torch.probe: M 32 x 2^23 of
+  random bits, one weight vector below 2^20, 1.107 GB) on each route, the
+  weight byte on the coarse operand (old), on the fine one (fh2) and the
+  fine one with the coverage on the tensor cores (fhm), at 1, 2 and 3 limbs
 With --graph also the path's own inputs: the arguments that
 `histgrowth -c all -H` and `ordered-histgrowth -H -c edge` (same -q and
 -l) hand the two wrappers on testgraphs.make_graph's graph, generated into
 build/chip_smoke/ and captured from runs of the port's CLI on cuda.
 
---other DIR: a directory with another build's hist.cu, group.cu and
-common.cuh (e.g. a parent commit's panacus_torch/csrc, unpacked with git
-archive under build/). They are built with the same nvcc flags into
+--other DIR: a directory with another build's hist.cu, group.cu, probe.cu
+and common.cuh (e.g. a parent commit's panacus_torch/csrc, unpacked with
+git archive under build/). They are built with the same nvcc flags into
 build/kernel_times/ and called as that build's wrappers called them: a
 zeroed output, or a zeroed difference array, per call. Every result of the
-other build must equal this checkout's. Each round times other, this,
+other build must equal this checkout's (unless --unchecked: a copy with
+parts taken out, timed only). Each round times other, this,
 this, other.
 
 Two times per call, in ms: `ev`, the median of single calls between CUDA
@@ -58,10 +65,11 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import runtime, testgraphs
+from . import probe, runtime, testgraphs
 from .ops import group_kernels as gk
 from .ops import hist_kernels as hk
 from .ops import kernels
+from .ops import probe_kernels as pk
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORK = os.path.join(ROOT, "build", "kernel_times")
@@ -72,7 +80,10 @@ SLEEP_CYCLES = 20_000_000  # about 10 ms of device clock: longer than queueing 3
 COPIES_BELOW = 200 << 20  # inputs smaller than this rotate over four copies
 ORDERED_QC = ((0.0, 1), (0.5, 1), (1.0, 2))  # ordered-histgrowth -q 0,0.5,1 -l 1,1,2
 ORDERED_ARGV = ["ordered-histgrowth", "-H", "-q", "0,0.5,1", "-l", "1,1,2"]
-KERNELS = ("pt_fused_hist", "pt_coverage", "pt_ordered_growth")
+KERNELS = ("pt_fused_hist", "pt_coverage", "pt_ordered_growth", "pt_similarity",
+           "pt_limb_hist")
+SOURCE_OF = {name: src for name, (src, _) in kernels._SIGNATURES.items()}
+CHAIN_TRIES = 3  # a chain whose queueing a host stall outlasted runs again
 HISTGROWTH_ARGV = ["histgrowth", "-c", "all", "-H", "-q", "0,0.5,1.0", "-l", "0,1,2"]
 
 
@@ -111,11 +122,12 @@ def thresholds(n_groups: int, quorum: float) -> torch.Tensor:
 
 @contextlib.contextmanager
 def capture():
-    """Record the arguments that the engine hands hist_kernels.fused_hist and
-    group_kernels.ordered_growth while the block runs; the calls go through
-    (and count their launches) as before."""
-    calls: Dict[str, list] = {"pt_fused_hist": [], "pt_ordered_growth": []}
-    fused_hist, ordered_growth = hk.fused_hist, gk.ordered_growth
+    """Record the arguments that the engine hands hist_kernels.fused_hist,
+    group_kernels.ordered_growth and group_kernels.similarity while the
+    block runs; the calls go through (and count their launches) as before."""
+    calls: Dict[str, list] = {"pt_fused_hist": [], "pt_ordered_growth": [],
+                              "pt_similarity": []}
+    fused_hist, ordered_growth, similarity = hk.fused_hist, gk.ordered_growth, gk.similarity
 
     def fused_hist_spy(M, W, n_bins):
         calls["pt_fused_hist"].append((M, W, n_bins))
@@ -125,11 +137,16 @@ def capture():
         calls["pt_ordered_growth"].append((M, w, thr, c_min))
         return ordered_growth(M, w, thr, c_min)
 
-    hk.fused_hist, gk.ordered_growth = fused_hist_spy, ordered_growth_spy
+    def similarity_spy(M, w, w_max=None):
+        calls["pt_similarity"].append((M, w, w_max))
+        return similarity(M, w, w_max)
+
+    hk.fused_hist, gk.ordered_growth, gk.similarity = (
+        fused_hist_spy, ordered_growth_spy, similarity_spy)
     try:
         yield calls
     finally:
-        hk.fused_hist, gk.ordered_growth = fused_hist, ordered_growth
+        hk.fused_hist, gk.ordered_growth, gk.similarity = fused_hist, ordered_growth, similarity
 
 
 def path_inputs(gfa: str):
@@ -185,22 +202,26 @@ def _sleep() -> float:
 
 
 def _chain_ms(fns: Sequence[Callable[[], object]], n: int) -> float:
-    sleep_ms = _sleep()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    t0 = time.perf_counter()
-    for i in range(n):
-        fns[i % len(fns)]()
-    queued_ms = (time.perf_counter() - t0) * 1e3
-    end.record()
-    end.synchronize()
-    if queued_ms >= sleep_ms:
-        raise RuntimeError(
-            f"queueing {n} calls took {queued_ms:.2f} ms, past the "
-            f"{sleep_ms:.2f} ms sleep: the chain did not run back to back"
-        )
-    return start.elapsed_time(end)
+    """ms of a chain of n calls queued behind the sleep; a chain whose
+    queueing outlasted the sleep (a stall of the host) is run again, up to
+    CHAIN_TRIES times."""
+    for _ in range(CHAIN_TRIES):
+        sleep_ms = _sleep()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fns[i % len(fns)]()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        if queued_ms < sleep_ms:
+            return start.elapsed_time(end)
+    raise RuntimeError(
+        f"queueing {n} calls took {queued_ms:.2f} ms, past the {sleep_ms:.2f} ms "
+        f"sleep, {CHAIN_TRIES} times: the chain did not run back to back"
+    )
 
 
 def slope_ms(fns: Sequence[Callable[[], object]], k: int = K) -> float:
@@ -229,15 +250,14 @@ def copies(tensors: Sequence[torch.Tensor]) -> List[Tuple[torch.Tensor, ...]]:
 # -- another build of the same C interface -------------------------------------
 
 def build_other(csrc: str) -> Dict[str, ctypes.CDLL]:
-    """Build the other csrc's hist.cu and group.cu into WORK, one nvcc each,
-    both at once; returns source -> library."""
+    """Build the other csrc's hist.cu, group.cu and probe.cu into WORK, one
+    nvcc each, all at once; returns source -> library."""
     with open(os.path.join(csrc, "common.cuh")) as f:
         common = f.read()
-    with open(os.path.join(csrc, "group.cu")) as f:
-        group = f.read()
-    with open(os.path.join(csrc, "hist.cu")) as f:
-        hist = f.read()
-    texts = {"hist": hist, "group": group}
+    texts = {}
+    for tag in ("hist", "group", "probe"):
+        with open(os.path.join(csrc, f"{tag}.cu")) as f:
+            texts[tag] = f.read()
     procs = {}
     for tag, text in texts.items():
         d = os.path.join(WORK, tag)
@@ -290,6 +310,31 @@ def other_coverage(lib, M):
     _call(lib, "pt_coverage", M.data_ptr(), M.shape[0], M.shape[1], cov.data_ptr(),
           torch.cuda.current_stream().cuda_stream)
     return cov
+
+
+def other_similarity(lib, M, w, w_max):
+    n_words, n_pad = M.shape
+    planes = gk.n_planes(w_max)
+    part_elems = ctypes.c_longlong()
+    rc = lib.pt_similarity_scratch(n_words, n_pad, planes, ctypes.byref(part_elems))
+    if rc != 0:
+        raise RuntimeError(f"pt_similarity_scratch of the other build failed: CUDA error {rc}")
+    part = torch.empty(part_elems.value, dtype=torch.int32, device=M.device)
+    out = torch.empty((32 * n_words, 32 * n_words), dtype=torch.int64, device=M.device)
+    _call(lib, "pt_similarity", M.data_ptr(), n_words, n_pad, w.data_ptr(), planes,
+          part.data_ptr(), part_elems.value, out.data_ptr(),
+          torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def other_limb_hist(lib, M, W, n_bins, n_limbs, weight_side, mma_cov):
+    n_coarse = pk.n_coarse_for(n_bins)
+    out = torch.zeros((n_limbs * W.shape[0], n_coarse * pk.FINE), dtype=torch.int64,
+                      device=M.device)
+    _call(lib, "pt_limb_hist", M.data_ptr(), M.shape[0], M.shape[1], W.data_ptr(),
+          W.shape[0], n_limbs, n_coarse, int(weight_side == "coarse"), int(mma_cov), 0,
+          0, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    return out
 
 
 def other_ordered_growth(lib, M, w, thr, c_min):
@@ -349,6 +394,28 @@ def _cases(dev, path):
                           lambda M, w, thr=thr, c=c: gk.ordered_growth(M, w, thr, c),
                           lambda lib, M, w, thr=thr, c=c: other_ordered_growth(lib, M, w, thr, c),
                           (M, w)))
+    for label, n_words, n_pad, n_groups, wstyle in (
+        ("node M", 3, 917_504, 90, "bp"),
+        ("1024 groups", 32, 1 << 20, 1024, "max31"),
+    ):
+        M = random_m(n_words, n_pad, n_groups, dev, g)
+        w = random_w(n_pad, wstyle, dev, g)
+        w_max = int(w.max())
+        cases.append((f"{label} random ({n_words} x {n_pad}, {wstyle}, max(w) given)",
+                      "pt_similarity",
+                      lambda M, w, m=w_max: gk.similarity(M, w, m),
+                      lambda lib, M, w, m=w_max: other_similarity(lib, M, w, m), (M, w)))
+    # the probe's inputs: every route of pt_limb_hist at 1-3 limbs
+    M, w = probe.make_inputs(dev, probe.N_WORDS, probe.N_ITEMS, 0)
+    n_bins = probe.n_bins_for(probe.N_WORDS)
+    for variant in ("old1", "old2", "old3", "fh21", "fh22", "fh23", "fhm1", "fhm2", "fhm3"):
+        _, kw = probe.ROUTES[variant]
+        cases.append((f"probe M ({probe.N_WORDS} x {probe.N_ITEMS}, 1 vector, {n_bins} bins) "
+                       f"{variant}",
+                      "pt_limb_hist",
+                      lambda M, w, kw=kw, b=n_bins: pk.limb_hist(M, w, b, **kw),
+                      lambda lib, M, w, kw=kw, b=n_bins: other_limb_hist(lib, M, w, b, **kw),
+                      (M, w)))
     if path is not None:
         (M, W, n_bins), ordered = path
         shape = f"path edge M ({M.shape[0]} x {M.shape[1]}, {W.shape[0]} vectors)"
@@ -367,9 +434,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                                  description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", metavar="DIR", help="another build's csrc directory")
     ap.add_argument("--graph", action="store_true", help="add the path's own inputs")
+    ap.add_argument("--unchecked", action="store_true",
+                    help="time the other build without comparing its results (a "
+                         "copy with parts taken out)")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--kernels", nargs="*", default=list(KERNELS), choices=KERNELS,
-                    help="the kernels to time (default: all three)")
+                    help="the kernels to time (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
@@ -382,7 +452,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     print(f"kernel_times on {smi} (nvidia-smi name, power.limit); torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    builds = kernels.build_all(["hist", "group"])
+    builds = kernels.build_all(["hist", "group", "probe"])
     libs = build_other(args.other) if args.other else {}
     print(f"builds: {time.perf_counter() - t0:.1f} s", flush=True)
     for source, b in builds.items():
@@ -399,10 +469,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             continue
         builds: Dict[str, Callable] = {"this": this_fn}
         if libs:
-            src = "hist" if name != "pt_ordered_growth" else "group"
-            builds["other"] = lambda *a, lib=libs[src]: other_fn(lib, *a)
+            builds["other"] = lambda *a, lib=libs[SOURCE_OF[name]]: other_fn(lib, *a)
         want = this_fn(*inputs)
-        if "other" in builds and not torch.equal(builds["other"](*inputs), want):
+        if ("other" in builds and not args.unchecked
+                and not torch.equal(builds["other"](*inputs), want)):
             print(f"FAIL {name} {label}: the other build's result differs", flush=True)
             return 1
         sets = copies(inputs)

@@ -106,8 +106,6 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
-# pt_ordered_growth's bit planes hold counts below 2^16
-MAX_ORDERED_GROUPS = 65534
 # int64 scratch of pt_ordered_growth per (device, stream): its difference
 # array and block counter, zero between calls (the kernel leaves it so)
 _ordered_scratches: Dict[Tuple[torch.device, int], torch.Tensor] = {}
@@ -161,8 +159,7 @@ def ordered_growth(
     launch). thr: int32 [n_groups] on the host, thr[g] = ceil((g + 1) *
     quorum) for a quorum in [0, 1] (check_thresholds rejects any other
     steps, on every device; on CUDA when thresholds_on first copies them);
-    M must have exactly ceil(n_groups / 32) word rows. On CUDA at most
-    MAX_ORDERED_GROUPS groups."""
+    M must have exactly ceil(n_groups / 32) word rows."""
     _check_m(M)
     _check_w(M, w)
     n_groups = thr.shape[0] if thr.dim() == 1 else -1
@@ -181,11 +178,6 @@ def ordered_growth(
     if _on_cpu(M, w):
         check_thresholds(thr)
         return ordered_growth_ref(M, w, thr, c_min)
-    if n_groups > MAX_ORDERED_GROUPS:
-        raise ValueError(
-            f"pt_ordered_growth takes at most {MAX_ORDERED_GROUPS} groups on "
-            f"CUDA, got {n_groups}"
-        )
     n_words, n_items_pad = M.shape
     out = torch.empty(n_groups, dtype=torch.int64, device=M.device)
     thr_dev = thresholds_on(M.device, thr)

@@ -37,8 +37,8 @@ FINE = 32  # fine bins per coarse bin (bin = 32 * coarse + fine)
 OPS = ("popc", "cast")
 WEIGHT_SIDES = ("fine", "coarse")
 MAX_COARSE_PAD = 240  # csrc/probe.cu: coarse bins travel as bytes
-MAX_UNITS = 48  # csrc/probe.cu: product tiles a block keeps in registers
-MAX_WORDS = 128  # csrc/probe.cu: two stages of every word fit shared memory
+MAX_UNITS = 48  # csrc/probe.cu: 16 x 16 product tiles a block keeps in registers
+MAX_WORDS = 128  # csrc/probe.cu: a stage of every word fits shared memory
 XOR_SCRATCH = BLOCK_ITEMS + BLOCK_ITEMS // 256 + 1  # csrc/probe.cu: pt_xor_fold
 
 

@@ -491,6 +491,52 @@ def test_kernel_times_captures_the_engines_thresholds():
         gk.check_thresholds(thr)
 
 
+def test_ordered_growth_past_65534_groups_matches_jax():
+    """65,537 groups (past the 16-bit counts the CUDA kernel once had):
+    the port's ordered growth equals panacus_tpu's engine ordered growth on
+    a few items, at every quorum and floor of ordered-histgrowth -q 0,0.5,1
+    -l 1,1,2 and at a floor of 2."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from panacus_tpu.ops import engine as jax_engine
+
+    n_groups, n_items_pad = 65_537, 64
+    rng = np.random.default_rng(65_537)
+    n_words = (n_groups + 31) // 32
+    M_np = rng.integers(0, 2**32, size=(n_words, n_items_pad), dtype=np.uint32)
+    M_np[-1] &= np.uint32(1)  # group 65,536: the one bit of the last word
+    M_np[:, 0] = 0
+    M_np[:, 5] = 0  # an item in no group
+    w = rng.integers(1, 100, n_items_pad).astype(np.int32)
+    w[0] = 0
+    M = torch.from_numpy(M_np.view(np.int32))
+    M_jax = jnp.asarray(M_np)
+    for q, c in [(0.0, 1), (0.5, 1), (1.0, 2), (0.5, 2)]:
+        thr = torch.from_numpy(
+            np.ceil(np.arange(1, n_groups + 1) * q).astype(np.int32))
+        got = gk.ordered_growth(M, torch.from_numpy(w), thr, c)
+        want = jax_engine.ordered_growth(M_jax, w, q, c, n_groups)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert got[-1] > 0 if q < 1 else True
+
+
+def test_ordered_histgrowth_help_states_no_group_cap(capsys):
+    """Neither the command list nor ordered-histgrowth --help caps the
+    groups."""
+    from panacus_torch.cli import run_cli
+
+    outs = []
+    for argv in (["--help"], ["ordered-histgrowth", "--help"]):
+        with pytest.raises(SystemExit) as e:
+            run_cli(argv)
+        assert e.value.code == 0
+        outs.append(capsys.readouterr().out)
+    assert "Calculate growth curve based on group file order" in outs[0]
+    assert "usage: panacus ordered-histgrowth" in outs[1]
+    for out in outs:
+        assert "65,534" not in out and "65534" not in out and "at most" not in out
+
+
 def test_transpose32_network():
     rng = np.random.default_rng(32)
     x = torch.from_numpy(rng.integers(0, 2**32, (32, 5), dtype=np.uint64).astype(np.int64))
@@ -606,6 +652,33 @@ def test_ordered_growth_any_thresholds_on_cuda(cuda_device, kind):
         got = gk.ordered_growth(M, w, thr, c)
         torch.cuda.synchronize()
         assert torch.equal(got, gk.ordered_growth_ref(M, w, thr, c)), c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_groups", [65_535, 70_001])
+def test_ordered_growth_past_65534_groups_on_cuda(cuda_device, n_groups):
+    """The 31-plane tier: 65,535 groups (the first count that 16 planes
+    cannot hold with n_groups + 1) and 70,001, a few hundred items split
+    between warps, every quorum at floors 1 and 2, exact."""
+    rng = np.random.default_rng(n_groups)
+    n_words, n_items_pad = (n_groups + 31) // 32, 516
+    M_np = rng.integers(0, 2**32, size=(n_words, n_items_pad), dtype=np.uint32)
+    M_np[:, 300:] &= rng.integers(0, 2**32, size=(n_words, n_items_pad - 300),
+                                  dtype=np.uint32)
+    M_np[:, 400:] = 0
+    M_np[: n_words // 2, 350:400] = 0  # items only in the later groups
+    M_np[:, 0] = 0
+    w_np = rng.integers(0, 2**31, n_items_pad).astype(np.int32)
+    w_np[0] = 0
+    M, w = _t(M_np, cuda_device), _t(w_np, cuda_device)
+    for q in (0.0, 0.5, 1.0):
+        for c in (1, 2):
+            thr = torch.from_numpy(_thr(n_groups, q))
+            before = kernels.launches["pt_ordered_growth"]
+            got = gk.ordered_growth(M, w, thr, c)
+            torch.cuda.synchronize()
+            assert kernels.launches["pt_ordered_growth"] == before + 1
+            assert torch.equal(got, gk.ordered_growth_ref(M, w, thr, c)), (q, c)
 
 
 # (n_groups, n_items_pad, weights): groups 1 to 4096 (one 128-group tile

@@ -316,6 +316,86 @@ def test_wrappers_reject_bad_operands():
         pk.limb_hist(M, torch.zeros((3, 8), dtype=torch.int32), 32 * 32 + 2, 3)
 
 
+# -- pt_limb_hist's operand registers, emulated ------------------------------
+
+
+def _byte_ne80(x, key, small):
+    """csrc/probe.cu:byte_ne80 on Python ints of 32 bits: bit 7 of a byte
+    set where x and key differ there (small: every byte below 128)."""
+    d = x ^ key
+    t = (d + 0x7F7F7F7F) if small else (((d & 0x7F7F7F7F) + 0x7F7F7F7F) | d)
+    return t & 0xFFFFFFFF
+
+
+def _onehot(x, key, small, sel=None):
+    """onehot (sel None: bytes of 1) or onehot_sel (the bytes of sel where
+    the byte of x equals the key's; prmt's sign mode as * 0xFF)."""
+    eq = (~_byte_ne80(x, key, small) >> 7) & 0x01010101
+    return eq if sel is None else (eq * 0xFF) & sel
+
+
+def _bytes(x):
+    return [(x >> (8 * b)) & 0xFF for b in range(4)]
+
+
+@pytest.mark.parametrize("n_words,n_limbs,side", [(3, 2, "fine"), (3, 3, "coarse"),
+                                                  (40, 1, "fine"), (40, 2, "coarse"),
+                                                  (120, 1, "fine"), (120, 1, "coarse")])
+def test_limb_hist_operand_registers(n_words, n_limbs, side):
+    """One 256-item stage of pt_limb_hist: the packed quads (coarse bin, 127
+    or 255 past the slice; fine bin; limb bytes of the salted weights), each
+    lane's A and B registers built by byte compares as the kernel builds
+    them (the shorter compare up to 112 coarse bins, 120 words past it), and
+    m16n8k32 products by the PTX fragment layout, equal limb_hist_ref."""
+    n_items, hi, salt = 256, 244, -5  # 12 items past the slice's end
+    M, W = _inputs(n_words, n_items, 1, 2**31, 70 + n_words)
+    n_bins = 32 * n_words + 2
+    n_coarse = pk.n_coarse_for(n_bins)
+    coarse_pad = (n_coarse + 15) // 16 * 16
+    cov = np.array([sum(bin(int(m)).count("1") for m in M[:, i]) for i in range(n_items)])
+    ws = _salted(W, salt)[0].view(np.uint32).astype(np.uint64)
+    small = coarse_pad <= 112
+    past = 127 if small else 255
+    coarse = np.where(np.arange(n_items) < hi, np.minimum(cov >> 5, past), past)
+
+    def quads(b):  # item bytes -> one word per quad
+        b = np.asarray(b, dtype=np.uint64).reshape(-1, 4)
+        return b[:, 0] | b[:, 1] << 8 | b[:, 2] << 16 | b[:, 3] << 24
+
+    cq, fq = quads(coarse), quads(cov & 31)
+    lq = [quads((ws >> (8 * j)) & 0xFF) for j in range(n_limbs)]
+    H = np.zeros((n_limbs, coarse_pad, FINE), dtype=np.int64)
+    for st in range(8):  # k32 steps
+        for l in range(n_limbs):
+            for mt in range(coarse_pad // 16):
+                for nh in range(2):
+                    A = np.zeros((16, 32), dtype=np.int64)
+                    B = np.zeros((32, 16), dtype=np.int64)
+                    for lane in range(32):
+                        gid, tig = lane >> 2, lane & 3
+                        q = [8 * st + tig, 8 * st + 4 + tig]
+                        cqs = [int(cq[k]) for k in q]
+                        fqs = [int(fq[k]) for k in q]
+                        rk = [(16 * mt + gid + 8 * e) * 0x01010101 for e in (0, 1)]
+                        ck = [(16 * nh + gid + 8 * e) * 0x01010101 for e in (0, 1)]
+                        sel = [int(lq[l][q[h]]) for h in (0, 1)]
+                        for h in (0, 1):  # items 4 tig + .. and 16 + 4 tig + ..
+                            for e in (0, 1):  # rows gid, gid + 8; n8 tiles 0, 1
+                                if side == "coarse":
+                                    a = _onehot(cqs[h], rk[e], small, sel[h])
+                                    b = _onehot(fqs[h], ck[e], True)
+                                else:
+                                    a = _onehot(cqs[h], rk[e], small)
+                                    b = _onehot(fqs[h], ck[e], True, sel[h])
+                                k0 = 16 * h + 4 * tig
+                                A[gid + 8 * e, k0 : k0 + 4] = _bytes(a)
+                                B[k0 : k0 + 4, 8 * e + gid] = _bytes(b)
+                    H[l, 16 * mt : 16 * mt + 16, 16 * nh : 16 * nh + 16] += A @ B
+    got = H[:, :n_coarse].reshape(n_limbs, n_coarse * FINE)
+    want = pk.limb_hist_ref(_t(M[:, :hi]), _t(W[:, :hi]), n_bins, n_limbs, salt)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
 # -- on the card ---------------------------------------------------------------
 
 
@@ -365,18 +445,20 @@ def test_limb_hist_matches_plain_on_cuda(cuda_device, n_words, n_items, n_vecs):
         for side, mma in (("coarse", False), ("fine", False), ("fine", True)):
             if n_limbs * n_vecs * ((pk.n_coarse_for(n_bins) + 15) // 16) * 2 > pk.MAX_UNITS:
                 continue
-            got = pk.limb_hist(M, W, n_bins, n_limbs, -7, side, mma)
-            want = pk.limb_hist_ref(M, W, n_bins, n_limbs, -7, side, mma)
-            torch.cuda.synchronize()
-            assert torch.equal(got, want), (n_limbs, side, mma)
+            for salt in (-7, 2**31 - 5):  # both wrap some weights negative
+                got = pk.limb_hist(M, W, n_bins, n_limbs, salt, side, mma)
+                want = pk.limb_hist_ref(M, W, n_bins, n_limbs, salt, side, mma)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (n_limbs, side, mma, salt)
 
 
 @pytest.mark.cuda
 def test_limb_hist_at_the_slice_cap_on_cuda(cuda_device):
     """2^24 items on at most one block per slice: two slices of exactly 2^23
-    items. Every weight byte is 255 and every coverage 4, so one bin per
-    limb sums 255 * 2^23 per slice (just below 2^31, still exact in the
-    int32 registers) and 255 * 2^24 in all."""
+    items, 2^15 stages of 256 each. Every weight byte is 255 and every
+    coverage 4, so one bin per limb sums 255 * 2^23 per slice (just below
+    2^31: the eight warps' int32 sums of a block meet in one shared int32,
+    still exact) and 255 * 2^24 in all."""
     n_items = 1 << 24
     M = torch.full((1, n_items), 0x0F, dtype=torch.int32, device=cuda_device)
     W = torch.full((1, n_items), 0x00FFFFFF, dtype=torch.int32, device=cuda_device)
