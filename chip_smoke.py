@@ -59,11 +59,26 @@ Phases, one or more lines each on stdout:
    Every kernel of the JSON line gets its share of that ceiling
    (share_of_read: its bytes over its time, over the read's bytes/s)
    beside its share of the datasheet bound.
+6. report path: on the graph of phase 3, through panacus_torch's CLI on
+   cuda: `info -H`, `info -S`, `info -H` restricted by phase 3's subset
+   BED, `node-distribution`, `report --json` of a YAML with two runs (run
+   1, `grouping: Haplotype`: Info, Hist all, Growth, CoverageLine,
+   NodeDistribution, OrderedGrowth edge; run 2, `grouping: Sample`: Hist,
+   Growth, Similarity node, which one run cannot hold beside ordered growth
+   on edges), `render` of that JSON and `report` of the same YAML as HTML.
+   Launch counts are reset just before these runs and read just after:
+   node-distribution must launch pt_coverage, the report pt_fused_hist,
+   pt_ordered_growth (3 times or more) and pt_similarity. Each output must
+   equal the port's CPU run of the same command: TSVs apart from `#` lines,
+   the JSON (strict: no NaN) apart from the `#` lines of its tables, the
+   HTML apart from its <footer> line; `render` renders each device's JSON
+   on that device. A small `info -S` on cuda must equal a numpy oracle.
 
 The line before the last is a JSON object with one entry per kernel (its
-launches are those of the path it belongs to; its times at the largest
-shape that path hands it, by events as `ms` and, where taken, by slope as
-`slope_ms`; under `path`, phase 4b's times); the last line is
+launches are those of the path it belongs to, and `report_launches` those
+of phase 6; its times at the largest shape that path hands it, by events
+as `ms` and, where taken, by slope as `slope_ms`; under `path`, phase
+4b's times); the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero without that
 line, as does a run without a CUDA device or outside a checkout. Generated
 graphs go to build/chip_smoke/.
@@ -728,6 +743,162 @@ def phase_path_kernels(dev, edge_hist, ordered_edge, similarity_node, res):
                                     "at": f"{M.shape[0]}x{M.shape[1]}, {planes} planes"}
 
 
+# phase 6: the report path, a report of two runs on the graph of phase 3
+REPORT_YAML = """\
+- graph: {gfa}
+  grouping: Haplotype
+  analyses:
+    - !Info
+    - !Hist
+      count_type: All
+    - !Growth
+      coverage: 1,1,2
+      quorum: 0,0.5,1
+    - !CoverageLine
+      count_type: Node
+    - !NodeDistribution
+    - !OrderedGrowth
+      count_type: Edge
+      coverage: 1,1,2
+      quorum: 0,0.5,1
+- graph: {gfa}
+  name: by sample
+  grouping: Sample
+  analyses:
+    - !Hist
+      count_type: All
+    - !Growth
+      coverage: 1,2
+      quorum: 0,0.5
+    - !Similarity
+      count_type: Node
+"""
+# the least launches of each kernel in a command of phase 6
+REPORT_LAUNCHES = {
+    "node-distribution": {"pt_coverage": 1},
+    "report --json": {"pt_fused_hist": 1, "pt_ordered_growth": 3, "pt_similarity": 1},
+}
+
+
+def report_body(out: str, kind: str):
+    """What must equal between two runs of one command: a TSV without its
+    `#` lines, the report JSON (parsed strictly) without the `#` lines of its
+    tables, the HTML without its <footer> line."""
+    if kind == "tsv":
+        return table(out)[0]
+    if kind == "html":
+        return [l for l in out.splitlines() if not l.startswith("<footer>")]
+
+    def no_const(x):
+        fail(f"non-finite constant {x} in the report JSON")
+
+    sections = json.loads(out, parse_constant=no_const)
+    for sec in sections:
+        if sec["table"] is not None:
+            sec["table"] = [l for l in sec["table"].split("\n")
+                            if not l.lstrip("`").startswith("#")]
+    return sections
+
+
+def info_rows(out: str):
+    """The info TSV as {(feature, category, countable): value}."""
+    return {tuple(r[:3]): r[3] for r in table(out)[1][1:]}
+
+
+def phase_report_path(dev):
+    """Drive the report path on cuda; check it against cpu and an oracle.
+    Returns the launches of each kernel in this phase."""
+    import numpy as np
+
+    from panacus_torch import testgraphs as tg
+    from panacus_torch.ops import kernels
+
+    gfa = bench_graph()
+    subset = os.path.join(WORK, "subset.bed")  # phase 3's
+    yaml = os.path.join(WORK, "report.yaml")
+    report_json = os.path.join(WORK, "report.json")  # each device's in turn
+    with open(yaml, "w") as f:
+        f.write(REPORT_YAML.format(gfa=gfa))
+    runs = [
+        ("info -H", ["info", "-H", gfa], "tsv"),
+        ("info -S", ["info", "-S", gfa], "tsv"),
+        ("subset-masked info -H", ["info", "-H", "-s", subset, gfa], "tsv"),
+        ("node-distribution", ["node-distribution", gfa], "tsv"),
+        ("report --json", ["report", "--json", yaml], "json"),
+        ("render", ["render", report_json], "html"),
+        ("report (HTML)", ["report", yaml], "html"),
+    ]
+    print(f"[report] {os.path.getsize(gfa) / 1e6:.1f} MB of GFA, on cuda:")
+    kernels.reset_launches()
+    outs = {}
+    for what, argv, kind in runs:
+        before = dict(kernels.launches)
+        out, ph, wall = drive(argv, "cuda")
+        delta = {k: kernels.launches[k] - before[k] for k in kernels.launches}
+        outs[what] = out
+        if what == "report --json":
+            with open(report_json, "w") as f:
+                f.write(out)
+        phases = ", ".join(f"{k} {v:.3f}" for k, v in ph.items()) or "none"
+        print(
+            f"[report] {what} on cuda: {wall:.3f} s; phases (s): {phases}; "
+            f"{len(out) / 1e6:.1f} MB out; launches "
+            f"{ {k: n for k, n in delta.items() if n} }"
+        )
+        for name, least in REPORT_LAUNCHES.get(what, {}).items():
+            if delta[name] < least:
+                fail(f"{what} launched {name} {delta[name]} times, fewer than {least}")
+    launches = dict(kernels.launches)
+
+    rows = info_rows(outs["info -H"])
+    if (rows[("graph", "total", "node")] != str(tg.N_NODES)
+            or rows[("graph", "total", "path")] != str(tg.N_PATHS)
+            or rows[("graph", "total", "group")] != str(tg.N_PATHS)):
+        fail("info -H does not count the graph's nodes, paths and groups")
+    _, nd = table(outs["node-distribution"])
+    if sum(int(r[3]) for r in nd[1:]) != tg.N_NODES:
+        fail("node-distribution does not bin every node once")
+    sections = report_body(outs["report --json"], "json")
+    kinds = {sec["analysis"] for sec in sections}
+    if len({sec["run_name"] for sec in sections}) != 2 or len(kinds) < 7:
+        fail(f"the report holds {len(kinds)} analyses of {len(sections)} sections")
+    for what, argv, kind in runs:
+        t0 = time.perf_counter()
+        cpu = drive(argv, "cpu")[0]
+        if what == "report --json":
+            with open(report_json, "w") as f:
+                f.write(cpu)
+        if report_body(outs[what], kind) != report_body(cpu, kind):
+            fail(f"{what} on cuda differs from the port's run on cpu")
+        print(f"[report] {what}: cuda output == cpu output ({kind}; cpu run "
+              f"{time.perf_counter() - t0:.3f} s)")
+
+    small = os.path.join(WORK, "dryrun.gfa")
+    visits, lens, edges = tg._write_dryrun_gfa(small)
+    rows = info_rows(drive(["info", "-S", small], "cuda")[0])
+    n_visits = [len(v) for v in visits]
+    want = {
+        ("graph", "total", "node"): tg.DRYRUN_NODES,
+        ("graph", "total", "bp"): int(lens.sum()),
+        ("graph", "total", "edge"): len(edges),
+        ("graph", "total", "path"): len(visits),
+        ("graph", "total", "group"): tg.DRYRUN_SAMPLES,
+        ("path", "longest", "node"): max(n_visits),
+        ("path", "shortest", "node"): min(n_visits),
+        # a group sums the P line of its sample only: the W line carries
+        # coordinates, and info skips such paths, as panacus does
+        # (info.rs:544-547)
+        **{("group", f"s{k}", "node"): n_visits[2 * k] for k in range(tg.DRYRUN_SAMPLES)},
+        **{("group", f"s{k}", "bp"): int(lens[visits[2 * k]].sum())
+           for k in range(tg.DRYRUN_SAMPLES)},
+    }
+    bad = {k: (rows.get(k), v) for k, v in want.items() if rows.get(k) != str(v)}
+    if bad:
+        fail(f"small info -S on cuda != numpy oracle: {bad}")
+    print("[report] small info -S on cuda == numpy oracle")
+    return launches
+
+
 # phase 5: the probe path, at the probe's default shape (M 32 x 2^23)
 PROBE_ROUNDS = 3
 PROBE_KERNELS = ("pt_xor_fold", "pt_word_fold", "pt_limb_hist")
@@ -860,6 +1031,9 @@ def main() -> int:
     probe_res, probe_launches, read_bps = phase_probe(dev, smi)
     res.update(probe_res)
     launches.update(probe_launches)
+    report_launches = phase_report_path(dev)
+    for name, r in res.items():
+        r["report_launches"] = report_launches[name]
     for name, r in res.items():
         r["share_of_read"] = r.pop("_bytes") / (r["ms"] / 1e3) / read_bps
         print(f"[probe] {name}: {r['share_of_read']:.4f} of the measured read, "

@@ -4,9 +4,9 @@ Counts pangenome coverage on an NVIDIA GPU (or, for tests, on the CPU)
 with hand-written CUDA kernels. The host layers (GFA ingest and its C
 library, masks, itemization, growth math, table writers) are the port's
 own copies of panacus_tpu's, under the same module names. It imports
-torch and never JAX or panacus_tpu. Ported so far: the hist, growth,
-histgrowth, ordered-histgrowth, similarity and table subcommands
-(`python -m panacus_torch ...`).
+torch and never JAX or panacus_tpu. It runs all ten subcommands of
+panacus_tpu (`python -m panacus_torch ...`) and its Python API
+(`panacus_torch.api`).
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,8 @@
 """Analysis layer: pull-based analyses over a GraphBroker
 (reference: src/analyses.rs:17-40).
 
-The port's copy of panacus_tpu/analyses, on the port's broker. Ported:
-hist, growth, ordered_growth, similarity and table; the other kinds
-(info, node_distribution, coverage_line) are refused."""
+The port's copy of panacus_tpu/analyses, on the port's broker: every
+analysis kind of the YAML schema."""
 
 from __future__ import annotations
 
@@ -49,8 +48,11 @@ class Analysis:
 
 
 def construct_analysis(parameter: AnalysisParameter) -> Analysis:
+    from .coverage_line import CoverageLine
     from .growth import Growth
     from .hist import HistAnalysis
+    from .info import Info
+    from .node_distribution import NodeDistribution
     from .ordered_histgrowth import OrderedHistgrowth
     from .similarity import Similarity
     from .table import Table
@@ -59,12 +61,13 @@ def construct_analysis(parameter: AnalysisParameter) -> Analysis:
         "hist": HistAnalysis,
         "growth": Growth,
         "table": Table,
+        "node_distribution": NodeDistribution,
+        "info": Info,
         "ordered_growth": OrderedHistgrowth,
+        "coverage_line": CoverageLine,
         "similarity": Similarity,
     }
     cls = registry.get(parameter.kind)
     if cls is None:
-        raise NotImplementedError(
-            f"the {parameter.kind} analysis is not yet ported to panacus_torch"
-        )
+        raise ValueError(f"unknown analysis kind: {parameter.kind}")
     return cls(parameter)

@@ -13,10 +13,11 @@ import logging
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Set, Tuple
 
+import numpy as np
 import torch
 
 from .abacus import AbacusByGroup, AbacusByTotal, construct_hists, path_order_groups
-from .gfa import GraphStorage
+from .gfa import GraphStorage, PathSegment
 from .hist import Hist
 from .itemize import itemize_paths
 from .mask import GraphMask, GraphMaskParameters
@@ -69,6 +70,7 @@ class GraphBroker:
         self.total_abaci: Optional[Dict[CountType, AbacusByTotal]] = None
         self.group_abacus: Optional[AbacusByGroup] = None
         self.hists: Optional[Dict[CountType, Hist]] = None
+        self.path_lens: Optional[Dict[PathSegment, Tuple[int, int]]] = None
         self.gfa_file = ""
         self.input_requirements: Set = set()
         self.count_type = CountType.ALL
@@ -147,6 +149,7 @@ class GraphBroker:
         self.total_abaci = None
         self.group_abacus = None
         self.hists = None
+        self.path_lens = None
 
     @staticmethod
     def _derive_count_type(reqs: Set) -> CountType:
@@ -165,6 +168,11 @@ class GraphBroker:
     # -- computation (reference: graph_broker.rs:227-247, 389-432) ------------
 
     def finish(self) -> None:
+        # drop the previous state's abaci first, so that their device
+        # matrices are freed before the next build allocates its own
+        self.total_abaci = None
+        self.group_abacus = None
+        self.hists = None
         self.mask = GraphMask.from_datamgr(self.mask_params, self.graph_aux)
         self._set_abaci_by_total()
         if Req.HIST in self.input_requirements:
@@ -213,6 +221,8 @@ class GraphBroker:
         self._path_order = path_order
         self._ordered_groups = groups
         self.total_abaci = abaci
+        if Req.PATH_LENS in self.input_requirements:
+            self.path_lens = itemized.paths_len
 
     def _set_hists(self) -> None:
         self.hists = {
@@ -260,6 +270,27 @@ class GraphBroker:
 
     def get_fname(self) -> str:
         return self.gfa_file
+
+    def get_degree(self) -> np.ndarray:
+        return self.graph_aux.degree
+
+    def get_node_lens(self) -> np.ndarray:
+        return self.graph_aux.node_lens
+
+    def get_node_count(self) -> int:
+        return self.graph_aux.node_count
+
+    def get_edge_count(self) -> int:
+        return self.graph_aux.edge_count
+
+    def get_group_count(self) -> int:
+        return self.mask.count_groups()
+
+    def get_groups(self) -> Dict[PathSegment, str]:
+        return self.mask.groups
+
+    def get_path_lens(self) -> Dict[PathSegment, Tuple[int, int]]:
+        return self.path_lens
 
     def get_hists(self) -> Dict[CountType, Hist]:
         return self.hists

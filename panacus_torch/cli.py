@@ -3,10 +3,11 @@
 The parser and the translation of arguments into analysis runs
 (build_parser, get_instructions) are the port's copy of panacus_tpu/cli.py
 (reference: src/lib.rs:77-222, src/commands/*.rs), so the port takes the
-same flags. Ported subcommands: hist, growth (on a graph or a hist TSV),
-histgrowth, ordered-histgrowth, similarity and table; every other
-subcommand exits with status 2. Counting runs on the device that
-runtime.resolve_device names (PANACUS_TORCH_DEVICE).
+same flags and runs the same ten subcommands: report, render, hist,
+growth (on a graph or a hist TSV), histgrowth, info, ordered-histgrowth,
+table, node-distribution and similarity. Counting runs on the device that
+runtime.resolve_device names (PANACUS_TORCH_DEVICE). The multi-host
+branch of panacus_tpu's run_cli is not ported.
 """
 
 from __future__ import annotations
@@ -416,14 +417,23 @@ def get_instructions(args) -> List[AnalysisRun]:
     return []
 
 
-PORTED = (
-    "hist",
-    "growth",
-    "histgrowth",
-    "ordered-histgrowth",
-    "similarity",
-    "table",
-)
+EXAMPLE_YAML = """
+# Missing YAML file!
+#
+# Example YAML:
+# To get started copy this into a .yaml file and edit it
+
+- graph: ../graphs/test_graph.gfa
+  grouping: Haplotype
+  analyses:
+    - !Hist
+      count_type: Bp
+    - !Growth
+      coverage: 1,1,2
+      quorum: 0,0.9,0
+
+# For more information see the panacus wiki
+"""
 
 
 def run_cli(argv: Optional[List[str]] = None) -> int:
@@ -433,14 +443,24 @@ def run_cli(argv: Optional[List[str]] = None) -> int:
         format="[%(asctime)s %(levelname)s %(name)s] %(message)s",
         stream=sys.stderr,
     )
-    if args.command not in PORTED:
-        print(
-            f"panacus_torch: {args.command} is not yet ported to panacus_torch",
-            file=sys.stderr,
-        )
-        return 2
     set_num_threads(args.threads)
     out = sys.stdout
+
+    if args.command == "render":
+        import json as json_mod
+
+        from .report.html import generate_report
+        from .report.sections import AnalysisSection
+
+        full_report = []
+        for fp in args.json_files:
+            with open(fp) as f:
+                full_report.extend(
+                    AnalysisSection.from_json_dict(d) for d in json_mod.load(f)
+                )
+        out.write(generate_report(full_report, args.json_files[0]))
+        out.write("\n")
+        return 0
 
     # growth on a hist TSV: the no-graph fast path (reference: lib.rs:144-174)
     if args.command == "growth" and args.gfa_file.endswith("tsv"):
@@ -471,9 +491,37 @@ def run_cli(argv: Optional[List[str]] = None) -> int:
 
     from .pipeline import convert_to_tasks, execute_pipeline
 
-    tasks = convert_to_tasks(get_instructions(args))
+    shall_write_html = False
+    dry_run = False
+    json = False
+    if args.command == "report":
+        shall_write_html = True
+        dry_run = args.dry_run
+        json = args.json
+        if args.yaml_file is None:
+            print(EXAMPLE_YAML)
+            return 0
+        from .config import load_config_file
+
+        instructions = load_config_file(args.yaml_file)
+    else:
+        instructions = get_instructions(args)
+
+    tasks = convert_to_tasks(instructions)
     log.info("%s", tasks)
-    execute_pipeline(tasks, out, resolve_device())
+    if dry_run:
+        # one task per line, as panacus_tpu prints the plan (the reference
+        # pretty-prints the task vector with {:#?}, src/lib.rs:213-217; an
+        # empty Vec prints as "[]" on one line)
+        if not tasks:
+            print("[]")
+            return 0
+        print("[")
+        for t in tasks:
+            print(f"    {t!r},")
+        print("]")
+        return 0
+    execute_pipeline(tasks, out, resolve_device(), shall_write_html, json)
     out.flush()
     return 0
 

@@ -1,7 +1,6 @@
 """Report sections: the JSON-serializable unit of analysis output.
 
-The part of panacus_tpu/report/sections.py that the ported analyses use
-(AnalysisSection, bar, multi_bar, heatmap).
+The port's copy of panacus_tpu/report/sections.py.
 
 Schema-compatible with the reference's serde output so `report --json` dumps
 can be merged and rendered later by `render`
@@ -92,6 +91,10 @@ def multi_bar(
     }
 
 
+def table_item(id, header, values) -> Dict[str, Any]:
+    return {"Table": {"id": id, "header": header, "values": values}}
+
+
 def heatmap(id, name, x_labels, y_labels, values) -> Dict[str, Any]:
     return {
         "Heatmap": {
@@ -103,3 +106,23 @@ def heatmap(id, name, x_labels, y_labels, values) -> Dict[str, Any]:
         }
     }
 
+
+def hexbin_item(id, bins) -> Dict[str, Any]:
+    return {"Hexbin": {"id": id, "bins": bins}}
+
+
+def line(
+    id, name, x_label, y_label, x_values, y_values, log_x, log_y
+) -> Dict[str, Any]:
+    return {
+        "Line": {
+            "id": id,
+            "name": name,
+            "x_label": x_label,
+            "y_label": y_label,
+            "x_values": x_values,
+            "y_values": y_values,
+            "log_x": log_x,
+            "log_y": log_y,
+        }
+    }

@@ -11,10 +11,11 @@ not ported.
 Node rows are packed while the async L-line edge indexer still runs; edge
 slabs are stashed only until the indexer completes (polled each slab).
 
-The build also returns the item tables that the coverage-table export
-reads: a SlabbedItemTable of node runs and, for edges, a LazyEdgeTable that
-derives edge ids from the node runs on demand. Both only keep references
-to the slabs the tokenizer has already produced.
+The build also returns each path's length in nodes and bp (for `info`),
+and the item tables that the coverage-table export reads: a
+SlabbedItemTable of node runs and, for edges, a LazyEdgeTable that derives
+edge ids from the node runs on demand. Both only keep references to the
+slabs the tokenizer has already produced.
 
 Applicability: unmasked runs (no subset/exclude coordinates) on graphs the
 native batch tokenizer handles. Masked runs take the classic itemizer.
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 from .abacus import AbacusByTotal, path_order_groups
-from .gfa import GraphStorage, SlabbedItemTable
+from .gfa import GraphStorage, PathSegment, SlabbedItemTable
 from .itemize import ItemizeResult
 from .mask import GraphMask
 from .native import (
@@ -49,16 +50,17 @@ log = logging.getLogger("panacus")
 
 @dataclass
 class _Slab:
-    word: int  # group word this slab contributes to
+    word: int  # group word this slab contributes to; -1 = ungrouped paths
     path_ids: np.ndarray  # global path indices, in path order
     gidx_rel: np.ndarray  # per-path group bit within the word (0..31)
 
 
-def _plan_slabs(path_order: List[Tuple[int, int]]) -> List[_Slab]:
+def _plan_slabs(path_order: List[Tuple[int, int]], n_paths: int) -> List[_Slab]:
     """Partition the (path, group) order into word-aligned slabs. Group
     indices are non-decreasing along path_order (path_order_groups), so
-    each 32-group word is one contiguous run. Paths in no group set no bit
-    and are not tokenized."""
+    each 32-group word is one contiguous run. Paths in no group form a
+    trailing slab that sets no bit: they are tokenized only for their
+    lengths, which the classic itemizer reports for every P/W line."""
     slabs: List[_Slab] = []
     cur_word = None
     cur_paths: List[int] = []
@@ -85,6 +87,10 @@ def _plan_slabs(path_order: List[Tuple[int, int]]) -> List[_Slab]:
                 np.asarray(cur_bits, dtype=np.int64),
             )
         )
+    grouped = {p for p, _ in path_order}
+    rest = np.asarray([p for p in range(n_paths) if p not in grouped], dtype=np.int64)
+    if len(rest):
+        slabs.append(_Slab(-1, rest, np.zeros(len(rest), dtype=np.int64)))
     return slabs
 
 
@@ -213,7 +219,7 @@ def streamed_total_abaci(
 
     path_order, groups = path_order_groups(mask, graph.path_segments)
     n_groups = len(groups)
-    slabs = _plan_slabs(path_order)
+    slabs = _plan_slabs(path_order, n_paths)
     need_edge = CountType.EDGE in count_types
     need_node = any(ct != CountType.EDGE for ct in count_types)
 
@@ -226,6 +232,8 @@ def streamed_total_abaci(
     edge_stream = None
     edge_table = None
     edge_fused = False
+    paths_len: Dict[PathSegment, Tuple[int, int]] = {}
+    segs = graph.path_segments
 
     log.info(
         "streamed membership build: %d slabs, %d groups, counts %s, on %s",
@@ -250,19 +258,20 @@ def streamed_total_abaci(
         """Pack (unless the tokenizer already did, `packed`) and feed the
         edge row of one slab."""
         ids, orient, prefsum, _ = batch
-        row = edge_stream.host_row(slab.word)
         if edge_fused:
             edge_table.add_slab(slab.path_ids, ids, orient, prefsum)
-            if not packed:
-                # edge lookup + group-bit OR in one C pass
-                pack_edges_adj(
-                    ids, orient, prefsum, slab.gidx_rel, graph.edge_adj(), row
-                )
-                row[0] = 0
         else:
             eids, e_pref = _slab_edges(graph, ids, orient, prefsum)
             edge_table.add_slab(slab.path_ids, eids, e_pref)
+        if slab.word < 0:
+            return
+        row = edge_stream.host_row(slab.word)
+        if not edge_fused:
             _pack_row(eids, e_pref, slab.gidx_rel, row)
+        elif not packed:
+            # edge lookup + group-bit OR in one C pass
+            pack_edges_adj(ids, orient, prefsum, slab.gidx_rel, graph.edge_adj(), row)
+            row[0] = 0
         edge_stream.feed(slab.word, row)
 
     def edge_index_ready():
@@ -281,9 +290,9 @@ def streamed_total_abaci(
         # fused tokenize+pack: the C tokenizer ORs each path's ids into the
         # host rows while they are still cache-hot
         pack = {}
-        if need_node:
+        if need_node and slab.word >= 0:
             pack["pack_node_row"] = node_stream.host_row(slab.word)
-        if edge_stream is not None and edge_fused:
+        if edge_stream is not None and edge_fused and slab.word >= 0:
             pack["pack_edge_row"] = edge_stream.host_row(slab.word)
             pack["pack_edge_adj"] = graph.edge_adj()
         if pack:
@@ -292,8 +301,15 @@ def streamed_total_abaci(
         if batch is None:  # tokenizer bailed: let the classic path run
             return None
         if need_node:
-            node_table.add_slab(slab.path_ids, batch[0], batch[2])
-            node_stream.feed(slab.word, pack["pack_node_row"])
+            # path lengths for node and bp runs only, as the classic
+            # itemizer fills them
+            ids, _, prefsum, bp = batch
+            counts = np.diff(prefsum)
+            for k, pid in enumerate(slab.path_ids):
+                paths_len[segs[int(pid)]] = (int(counts[k]), int(bp[k]))
+            node_table.add_slab(slab.path_ids, ids, prefsum)
+            if slab.word >= 0:
+                node_stream.feed(slab.word, pack["pack_node_row"])
         if edge_stream is not None:
             consume_edge(slab, batch, "pack_edge_row" in pack)
         elif need_edge:
@@ -312,7 +328,7 @@ def streamed_total_abaci(
         ],
         exclude_tables=[None] * len(count_types),
         subset_covered_bps=None,
-        paths_len=None,  # no ported analysis reads path lengths yet
+        paths_len=paths_len,
     )
     abaci: Dict[CountType, AbacusByTotal] = {}
     for ct in count_types:

@@ -1,9 +1,10 @@
 """The port stands alone: nothing of JAX or of the JAX package.
 
 - A fresh interpreter runs `histgrowth -c all`, `ordered-histgrowth`,
-  `similarity` and `table` through panacus_torch on the CPU, then the probe
-  entry point (panacus_torch.probe), and must finish with no `jax` and no
-  `panacus_tpu` module loaded; `python -m panacus_torch.probe` run under
+  `similarity`, `table`, `report --json` (every analysis kind that adds a
+  section) and `render` of that JSON through panacus_torch on the CPU, then
+  the probe entry point (panacus_torch.probe), and must finish with no
+  `jax` and no `panacus_tpu` module loaded; `python -m panacus_torch.probe` run under
   `-X importtime` imports neither.
 - An AST scan of every module of panacus_torch and of chip_smoke.py finds
   no import of panacus_tpu, jax, bench or __graft_entry__.
@@ -27,7 +28,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("panacus_tpu", "jax", "bench", "__graft_entry__")
 
 SCRIPT = """
-import sys
+import contextlib, io, sys
 from panacus_torch.cli import run_cli
 for argv in (
     ["histgrowth", "-c", "all", "-S", "-q", "0,1", "-l", "1,2"],
@@ -37,6 +38,14 @@ for argv in (
 ):
     rc = run_cli(argv + [sys.argv[1]])
     assert rc == 0, (argv, rc)
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    rc = run_cli(["report", "--json", sys.argv[2]])
+assert rc == 0, rc
+with open(sys.argv[3], "w") as f:
+    f.write(buf.getvalue())
+rc = run_cli(["render", sys.argv[3]])
+assert rc == 0, rc
 from panacus_torch import probe
 rc = probe.main(["--words", "2", "--items", "16384", "--rounds", "1", "read", "paritym"])
 assert rc == 0, rc
@@ -53,9 +62,17 @@ def test_slice_imports_no_jax(tmp_path):
 
     gfa = tmp_path / "dryrun.gfa"
     testgraphs._write_dryrun_gfa(str(gfa))
+    yaml = tmp_path / "report.yaml"
+    yaml.write_text(
+        f"- graph: {gfa}\n  grouping: Sample\n  analyses:\n"
+        "    - !Info\n    - !Hist\n    - !Growth\n    - !NodeDistribution\n"
+        "    - !CoverageLine\n    - !OrderedGrowth\n"
+        f"- graph: {gfa}\n  name: sim\n  grouping: Haplotype\n  analyses:\n"
+        "    - !Similarity\n"
+    )
     env = dict(os.environ, PANACUS_TORCH_DEVICE="cpu")
     res = subprocess.run(
-        [sys.executable, "-c", SCRIPT, str(gfa)],
+        [sys.executable, "-c", SCRIPT, str(gfa), str(yaml), str(tmp_path / "r.json")],
         cwd=ROOT,
         env=env,
         capture_output=True,
@@ -64,11 +81,13 @@ def test_slice_imports_no_jax(tmp_path):
     )
     assert res.returncode == 0, res.stderr[-4000:]
     assert "NO_JAX_OK" in res.stdout
-    assert "panacus\tgrowth" in res.stdout
-    assert "panacus\tordered-growth" in res.stdout
-    assert res.stdout.count("\ngroup\t") == 1  # the similarity table
-    assert "\nnode\ts0\t" in res.stdout  # the coverage table
-    assert "parity fhm vs current: True" in res.stdout
+    tables, html = res.stdout.split("<!DOCTYPE html>")  # one rendered report
+    assert "panacus\tgrowth" in tables
+    assert "panacus\tordered-growth" in tables
+    assert tables.count("\ngroup\t") == 1  # the similarity table
+    assert "\nnode\ts0\t" in tables  # the coverage table
+    assert html.count('<section class="card"') > 8
+    assert "parity fhm vs current: True" in html
 
 
 def test_probe_entry_point_imports_no_jax():

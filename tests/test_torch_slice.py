@@ -98,9 +98,43 @@ def test_growth_from_hist_tsv_matches_jax(capsys, monkeypatch, graphs, graph, tm
     )
 
 
-def test_unported_subcommand_exits_nonzero(capsys, graphs):
-    assert torch_cli(["info", str(graphs / "dryrun.gfa")]) != 0
-    assert "not yet ported to panacus_torch" in capsys.readouterr().err
+SUBCOMMANDS = {
+    "render": ["render", "{json}"],
+    "report": ["report", "--json", "{yaml}"],
+    "hist": ["hist", "-c", "all", "{gfa}"],
+    "growth": ["growth", "-S", "{gfa}"],
+    "histgrowth": ["histgrowth", "-H", "{gfa}"],
+    "info": ["info", "{gfa}"],
+    "ordered-histgrowth": ["ordered-histgrowth", "-S", "{gfa}"],
+    "table": ["table", "-S", "{gfa}"],
+    "node-distribution": ["node-distribution", "{gfa}"],
+    "similarity": ["similarity", "-H", "{gfa}"],
+}
+
+
+@pytest.mark.parametrize("command", sorted(SUBCOMMANDS))
+def test_every_subcommand_runs(capsys, monkeypatch, graphs, tmp_path, command):
+    """Every subcommand of panacus_tpu's parser runs through the port's CLI
+    on the dryrun graph and exits 0 with output."""
+    pytest.importorskip("jax")
+    import argparse
+
+    from panacus_tpu.cli import build_parser
+
+    (sub,) = [
+        a for a in build_parser()._actions if isinstance(a, argparse._SubParsersAction)
+    ]
+    assert sorted(sub.choices) == sorted(SUBCOMMANDS)
+    monkeypatch.setenv("PANACUS_TORCH_DEVICE", "cpu")
+    gfa = graphs / "dryrun.gfa"
+    yaml = tmp_path / "r.yaml"
+    yaml.write_text(f"- graph: {gfa}\n  analyses:\n    - !Info\n    - !Hist\n")
+    report = tmp_path / "r.json"
+    assert torch_cli(["report", "--json", str(yaml)]) == 0
+    report.write_text(capsys.readouterr().out)
+    argv = [a.format(gfa=gfa, yaml=yaml, json=report) for a in SUBCOMMANDS[command]]
+    assert torch_cli(argv) == 0
+    assert capsys.readouterr().out.count("\n") > 4
 
 
 def test_default_device_never_falls_back(monkeypatch):
