@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of panacus_torch, the PyTorch/CUDA port.
 
-Run from the root of a checkout on a machine with one NVIDIA GPU:
+Run from the root of a checkout on a machine with one NVIDIA GPU or more:
 
     python3 chip_smoke.py
 
@@ -73,6 +73,32 @@ Phases, one or more lines each on stdout:
    the JSON (strict: no NaN) apart from the `#` lines of its tables, the
    HTML apart from its <footer> line; `render` renders each device's JSON
    on that device. A small `info -S` on cuda must equal a numpy oracle.
+7. sharded: the membership matrices split along the item axis over a
+   tuple of devices, one shard each: four shards on the first card, and
+   one shard on each card where two or more are visible. Engine level:
+   the main path's edge M (3 x 3,604,480) and the 1 GiB M (1024 groups x
+   2^23), built from the host matrix on the first card alone and on each
+   tuple: coverage, hist_multi (ones, bp), ordered growth (q=0/0.5/1,
+   c=1/1/2) and similarity must be exactly equal, each kernel launched k
+   times as often, once on each shard (counts printed per shard); then 5
+   warm op sets of each, in turns with the first card alone. The 1 GiB
+   hist is timed per shard (CUDA events on its card) and for the whole
+   set (host wall: the launches, the copies back, the int64 merge), in
+   turns with one device. CountingEngine.build from 8M (item, group) pairs
+   on cuda must equal the host-packed M and the CPU build. The host time
+   of a MembershipStream at the edge M's shape is split into the zero
+   fills, the pinned rows, issuing the copies, waiting for them and one
+   bp-sized weight upload, 5 warm runs of each tuple in turns. CLI level:
+   histgrowth -c all, ordered-histgrowth -c edge and similarity -c node
+   (as in phases 3-4) on each tuple, 5 runs each in turns with the first
+   card alone: every TSV equal to phases 3-4's, the launches k times one
+   card's, each shard's those of the one-card run's matrix; the walls and
+   pipeline phases as medians and samples. Then
+   testgraphs.dryrun_multichip on each tuple. It prints "devices:
+   <distinct> distinct of <k> shards".
+
+Phases 3, 4 and 6 run on the first card alone (one shard), whatever the
+number of cards, so their launch counts and times compare across machines.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches are those of the path it belongs to, and `report_launches` those
@@ -92,6 +118,7 @@ import json
 import logging
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -157,22 +184,29 @@ class PhaseLog(logging.Handler):
             self.phases[name] = self.phases.get(name, 0.0) + seconds
 
 
-def drive(argv, device: str):
-    """One run of the port's CLI on `device`: (stdout, phase seconds, wall)."""
+def drive(argv, device: str, devices=None):
+    """One run of the port's CLI on `device` ("cuda" or "cpu"): (stdout,
+    phase seconds, wall). On cuda the membership matrices go to `devices`
+    (a tuple of cards, one item shard each), by default the first card
+    alone, so that the launch counts and times of phases 3-6 do not depend
+    on how many cards are visible."""
     import torch
 
     from panacus_torch.cli import run_cli
 
     os.environ["PANACUS_TORCH_DEVICE"] = device
+    if device == "cuda" and devices is None:
+        devices = (torch.device("cuda", 0),)
     handler = PhaseLog()
     logging.getLogger("panacus").addHandler(handler)
     buf = io.StringIO()
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(buf):
-            rc = run_cli(argv)
+            rc = run_cli(argv, devices=devices)
         if device == "cuda":
-            torch.cuda.synchronize()
+            for d in set(devices):
+                torch.cuda.synchronize(d)
     finally:
         logging.getLogger("panacus").removeHandler(handler)
     wall = time.perf_counter() - t0
@@ -475,14 +509,15 @@ def check_growth_table(out: str, n_groups: int, what: str) -> str:
     return body
 
 
-def phase_main_path(dev):
+def phase_main_path(dev, single):
     """Drive the main path on cuda; check it against cpu and an oracle.
 
     The main path is the histgrowth command on the full-size graph twice:
     unmasked (the streamed build, one pt_fused_hist pass for node+bp and
     one for edge) and restricted to a region of the 45 P-line haplotypes
     by a subset BED (the classic itemizer: one engine per count type, and
-    pt_coverage for the bp of nodes the region cuts)."""
+    pt_coverage for the bp of nodes the region cuts). The unmasked run goes
+    into `single` for phase 7."""
     import numpy as np
 
     from panacus_torch import testgraphs as tg
@@ -505,6 +540,8 @@ def phase_main_path(dev):
     with capture() as calls:  # the arguments of each call, for phase 4b
         out_big, phases, wall = drive(unmasked, "cuda")
     counts_unmasked = dict(kernels.launches)
+    single["histgrowth -c all"] = (unmasked, table(out_big)[0], counts_unmasked,
+                                   per_matrix(calls), wall)
     out_masked, phases_masked, wall_masked = drive(masked, "cuda")
     launches = dict(kernels.launches)
     counts_masked = {k: launches[k] - counts_unmasked[k] for k in launches}
@@ -584,13 +621,15 @@ def check_similarity_table(out: str, n_groups: int, what: str) -> str:
     return body
 
 
-def phase_group_path(dev):
+def phase_group_path(dev, single):
     """Drive the group path on cuda; check it against cpu and oracles.
 
     ordered-histgrowth (-c bp and -c edge) and similarity (-c node and -c
     bp) on the full-size graph with 90 haplotype groups. Every ordered run
     sets its order, which builds the abaci a second time (as panacus_tpu
-    does): the phase order_change times that second build."""
+    does): the phase order_change times that second build. The -c edge
+    ordered run and the -c node similarity run go into `single` for phase
+    7."""
     import numpy as np
 
     from panacus_torch import testgraphs as tg
@@ -616,6 +655,8 @@ def phase_group_path(dev):
         if what == "similarity -c node":
             similarity_node = calls["pt_similarity"]
         delta = {k: kernels.launches[k] - before[k] for k in kernels.launches}
+        if what in SHARDED_RUNS:
+            single[what] = (argv, table(out)[0], delta, per_matrix(calls), wall)
         outs.append((what, argv, out, delta))
         print(
             f"[group] {what} -H on cuda: {mb:.1f} MB of GFA in {wall:.3f} s; "
@@ -1010,6 +1051,317 @@ def phase_probe(dev, smi):
     return res, launches, read_bps
 
 
+# phase 7: the membership matrix split over item shards
+SHARDED_RUNS = ("histgrowth -c all", "ordered-histgrowth -c edge", "similarity -c node")
+# (label, n_groups, n_items): the main path's edge M (3 x 3,604,480) and
+# the 1 GiB M of phase 2 (1024 groups x 2^23)
+SHARDED_SHAPES = [
+    ("edge M of the main path", 90, 3_604_480 - 1),
+    ("1 GiB M", 1024, (1 << 23) - 1),
+]
+SHARDED_QC = [(0.0, 1), (0.5, 1), (1.0, 2)]
+N_PAIRS = 8_000_000  # occurrence pairs of the build check, with duplicates
+SHARDED_ROUNDS = 5  # warm samples of each shard tuple, taken in turns
+
+
+def per_matrix(calls):
+    """From kernel_times.capture's calls: for each kernel, the number of
+    calls on each distinct M (a whole matrix, or one shard), sorted."""
+    out = {}
+    for name, args in calls.items():
+        n = {}
+        for a in args:
+            n[id(a[0])] = n.get(id(a[0]), 0) + 1
+        out[name] = sorted(n.values())
+    return out
+
+
+def shard_configs():
+    """The shard tuples phase 7 runs: four shards on the first card, and
+    one shard on each card where two or more are visible."""
+    import torch
+
+    first = torch.device("cuda", 0)
+    configs = [(first,) * 4]
+    n = torch.cuda.device_count()
+    if n > 1:
+        configs.append(tuple(torch.device("cuda", i) for i in range(n)))
+    return configs
+
+
+def describe(devices) -> str:
+    return f"devices: {len(set(devices))} distinct of {len(devices)} shards"
+
+
+def engine_ops(eng, bp):
+    """coverage, hist_multi (ones and bp), ordered growth at SHARDED_QC and
+    similarity (bp) of one engine: (results, wall s)."""
+    t0 = time.perf_counter()
+    out = [eng.coverage(), *eng.hist_multi([None, bp])]
+    out += [eng.ordered_growth(bp, q, c) for q, c in SHARDED_QC]
+    out.append(eng.similarity(bp))
+    return out, time.perf_counter() - t0
+
+
+def counted(fn):
+    """Run fn with the launch counts set to 0 just before and read just
+    after, the arguments of each call captured: (fn's result, launches,
+    calls)."""
+    from panacus_torch.kernel_times import capture
+    from panacus_torch.ops import kernels
+
+    kernels.reset_launches()
+    with capture() as calls:
+        res = fn()
+    return res, dict(kernels.launches), calls
+
+
+def check_scaled(what, k, launches, one):
+    """Each kernel launched k times as often on k shards as on one."""
+    bad = {n: (launches[n], one[n]) for n in one if launches[n] != k * one[n]}
+    if bad:
+        fail(f"{what}: launches on {k} shards are not {k} x one device's: {bad}")
+
+
+def samples(xs, scale=1.0, fmt="%.4f") -> str:
+    """The median of xs and every sample, in the order taken."""
+    return (fmt % (statistics.median(xs) * scale)) + " [" + ", ".join(
+        fmt % (x * scale) for x in xs) + "]"
+
+
+def phase_sharded_engine(configs, flush):
+    """Engine level: each shape on the first card alone and on each shard
+    tuple, outputs exactly equal, launches k times one device's, each
+    shard's count printed; then SHARDED_ROUNDS warm op sets of each, in
+    turns. The 1 GiB hist is timed per shard and for the whole set, in
+    turns with one device. Then CountingEngine.build from occurrence pairs
+    on cuda against the host-packed M and the CPU build."""
+    import numpy as np
+    import torch
+
+    from panacus_torch.kernel_times import event_ms, random_m
+    from panacus_torch.ops import hist_kernels as hk
+    from panacus_torch.ops.engine import CountingEngine
+
+    first = configs[0][0]  # the first card
+    g = torch.Generator(device=first)
+    g.manual_seed(7)
+    rng = np.random.default_rng(7)
+    for label, n_groups, n_items in SHARDED_SHAPES:
+        n_words = (n_groups + 31) // 32
+        M = random_m(n_words, n_items + 1, n_groups, first, g).cpu().numpy().view(np.uint32)
+        bp = rng.integers(1, 17, n_items + 1)
+        bp[0] = 0
+        one = CountingEngine.from_host_state(M, n_items, n_groups, first)
+        (want, wall_one), launches_one, _ = counted(lambda: engine_ops(one, bp))
+        print(f"[sharded] {label} ({n_words} x {n_items + 1}) on cuda:0 alone: first "
+              f"op set {wall_one:.3f} s; launches "
+              f"{ {n: c for n, c in launches_one.items() if c} }")
+        engines = []
+        for devs in configs:
+            eng = CountingEngine.from_host_state(M, n_items, n_groups, devs)
+            (got, wall), launches, calls = counted(lambda: engine_ops(eng, bp))
+            for a, b in zip(got, want):
+                if a.shape != b.shape or not np.array_equal(a, b):
+                    fail(f"{label} on {len(devs)} shards differs from one device")
+            k = len(devs)
+            check_scaled(label, k, launches, launches_one)
+            index = {id(m): s for s, m in enumerate(eng.shards)}
+            per_shard = {}
+            for name, args in calls.items():
+                if args:
+                    n = [0] * k
+                    for a in args:
+                        n[index[id(a[0])]] += 1
+                    per_shard[name] = n
+            print(f"[sharded] {label} on {k} shards ({describe(devs)}): coverage, "
+                  f"hist_multi, ordered growth q,c={SHARDED_QC} and similarity == "
+                  f"one device's; first op set {wall:.3f} s (cold on cards not used "
+                  f"before); launches per shard {per_shard}")
+            engines.append(eng)
+        # warm op sets, in turns: one device, then each tuple
+        walls = [[] for _ in range(1 + len(engines))]
+        for _ in range(SHARDED_ROUNDS):
+            for i, eng in enumerate([one] + engines):
+                walls[i].append(engine_ops(eng, bp)[1])
+        print(f"[sharded] {label}: op set, {SHARDED_ROUNDS} warm runs in turns, s: "
+              f"cuda:0 alone {samples(walls[0])}; " + "; ".join(
+                  f"{describe(devs)} {samples(w)}" for devs, w in zip(configs, walls[1:])))
+        if label == "1 GiB M":
+            for devs, eng in zip(configs, engines):
+                per = []
+                for m in eng.shards:
+                    W = torch.ones((1, m.shape[1]), dtype=torch.int32, device=m.device)
+                    with torch.cuda.device(m.device):
+                        per.append(event_ms(lambda m=m, W=W: hk.fused_hist(m, W, n_groups + 2),
+                                            10, flush[m.device]))
+                set_walls, one_walls = [], []
+                for _ in range(10):
+                    for e, ws in ((eng, set_walls), (one, one_walls)):
+                        t0 = time.perf_counter()
+                        e.hist()
+                        ws.append(time.perf_counter() - t0)
+                print(f"[sharded] 1 GiB hist (all-ones) on {len(devs)} shards "
+                      f"({describe(devs)}): pt_fused_hist per shard "
+                      f"{['%.4f' % t for t in per]} ms by events; the whole set (launch, "
+                      f"copy back, merge), 10 in turns with one device, ms: "
+                      f"{samples(set_walls, 1e3)}; one device {samples(one_walls, 1e3)}")
+        del engines, eng, one, M
+
+    # build from occurrence pairs: the edge M's shape, 8M pairs with duplicates
+    n_groups, n_items = SHARDED_SHAPES[0][1:]
+    items = rng.integers(0, n_items + 1, N_PAIRS)
+    groups = rng.integers(0, n_groups, N_PAIRS)
+    cpu = CountingEngine(n_items, n_groups, torch.device("cpu")).build(items, groups)
+    M = np.zeros((cpu.n_words, cpu.n_items_pad), dtype=np.uint32)
+    np.bitwise_or.at(M, (groups >> 5, items), np.uint32(1) << (groups & 31).astype(np.uint32))
+    if not np.array_equal(cpu.shards[0].numpy().view(np.uint32), M):
+        fail("CountingEngine.build on the CPU != the host-packed M")
+    for devs in [(first,)] + configs:
+        t0 = time.perf_counter()
+        eng = CountingEngine(n_items, n_groups, devs).build(items, groups)
+        got = np.concatenate([m.cpu().numpy() for m in eng.shards], axis=1).view(np.uint32)
+        wall = time.perf_counter() - t0
+        if not (np.array_equal(got[:, : n_items + 1], M[:, : n_items + 1])
+                and not got[:, n_items + 1 :].any()):
+            fail(f"CountingEngine.build on {len(devs)} cuda shards != the host-packed M")
+        print(f"[sharded] build from {N_PAIRS} pairs on {len(devs)} shards "
+              f"({describe(devs)}): == host-packed M == CPU build; {wall:.3f} s")
+
+
+def phase_sharded_upload(configs):
+    """Where a k-shard engine spends its host time on the CLI's way of
+    filling M (MembershipStream) at the edge M's shape, on the first card
+    alone and on each tuple, SHARDED_ROUNDS in turns after one cold round:
+    the zero fills of the shards, the pinned host rows, issuing the copies
+    of each word's row (k a word), waiting for them, and one upload of
+    bp-sized weights (`_w_dev`, as every weighted op makes). The assembled
+    shards must equal the rows."""
+    import numpy as np
+    import torch
+
+    from panacus_torch.ops.engine import MembershipStream
+
+    _, n_groups, n_items = SHARDED_SHAPES[0]
+    rng = np.random.default_rng(11)
+    one = (configs[0][0],)
+    tuples = [one] + configs
+    steps = ("zero fills", "pinned rows", "issue copies", "copies done", "weights")
+    times = [{st: [] for st in steps} for _ in tuples]
+    rows = bp = None
+    for r in range(1 + SHARDED_ROUNDS):
+        for i, devs in enumerate(tuples):
+            cards = sorted(set(devs), key=lambda d: d.index)
+
+            def sync():
+                for d in cards:
+                    torch.cuda.synchronize(d)
+
+            t = [time.perf_counter()]
+            stream = MembershipStream(n_items, n_groups, devs)
+            sync()
+            t.append(time.perf_counter())
+            eng = stream.engine
+            if rows is None:
+                rows = rng.integers(0, 2**32, (eng.n_words, eng.n_items_pad), dtype=np.uint32)
+                rows[:, n_items + 1 :] = 0
+                bp = rng.integers(1, 17, n_items + 1)
+                bp[0] = 0
+            host = [stream.host_row(w) for w in range(eng.n_words)]
+            t.append(time.perf_counter())
+            for w, row in enumerate(host):
+                row[:] = rows[w]
+            t.append(time.perf_counter())  # the host's fill is not one of the steps
+            for w, row in enumerate(host):
+                stream.feed(w, row)
+            t.append(time.perf_counter())
+            eng = stream.finalize()
+            sync()
+            t.append(time.perf_counter())
+            eng._w_dev(bp)
+            sync()
+            t.append(time.perf_counter())
+            if r == 0:
+                got = np.concatenate([m.cpu().numpy() for m in eng.shards], axis=1)
+                if not np.array_equal(got.view(np.uint32), rows):
+                    fail(f"MembershipStream on {len(devs)} shards != the rows fed")
+                continue
+            d = [t[1] - t[0], t[2] - t[1], t[4] - t[3], t[5] - t[4], t[6] - t[5]]
+            for st, x in zip(steps, d):
+                times[i][st].append(x)
+            del stream, eng, host
+    for devs, ts in zip(tuples, times):
+        print(f"[sharded] MembershipStream of the edge M ({len(rows)} x {rows.shape[1]}) "
+              f"on {len(devs)} shard(s) ({describe(devs)}) == the rows; warm, ms, "
+              f"median [samples]: " + "; ".join(
+                  f"{st} {samples(ts[st], 1e3, '%.3f')}" for st in steps))
+
+
+def phase_sharded_cli(configs, single):
+    """CLI level: the commands of SHARDED_RUNS through the port's CLI with
+    M split over each shard tuple, in turns with the first card alone,
+    SHARDED_ROUNDS times each: each TSV equal to the one-card run's of
+    phases 3-4, each kernel launched k times as often, each shard's
+    launches those of the one-card run's matrix. The walls and each
+    pipeline phase are printed as medians and samples."""
+    from panacus_torch.testgraphs import dryrun_multichip
+
+    one = (configs[0][0],)
+    tuples = [one] + configs
+    for what in SHARDED_RUNS:
+        argv, body, launches_one, per_one, wall_first = single[what]
+        print(f"[sharded] {what} -H, first run on the first card alone "
+              f"(phases 3-4): {wall_first:.3f} s")
+        walls = [[] for _ in tuples]
+        phases = [{} for _ in tuples]
+        shown = set()
+        for _ in range(SHARDED_ROUNDS):
+            for i, devs in enumerate(tuples):
+                k = len(devs)
+                (out, ph, wall), launches, calls = counted(lambda: drive(argv, "cuda", devs))
+                if table(out)[0] != body:
+                    fail(f"{what} on {k} shards: TSV differs from the one-card run")
+                check_scaled(what, k, launches, launches_one)
+                per_shard = per_matrix(calls)
+                for name, counts in per_one.items():
+                    if per_shard[name] != sorted(counts * k):
+                        fail(f"{what} on {k} shards: {name} launches per shard "
+                             f"{per_shard[name]}, one card's matrices {counts}")
+                walls[i].append(wall)
+                for n, x in ph.items():
+                    phases[i].setdefault(n, []).append(x)
+                if i not in shown:
+                    shown.add(i)
+                    print(f"[sharded] {what} -H on {k} shard(s) ({describe(devs)}): TSV "
+                          f"== phases 3-4's; launches "
+                          f"{ {n: c for n, c in launches.items() if c} }, per shard "
+                          f"{ {n: c for n, c in per_shard.items() if c} }")
+        for devs, w, ph in zip(tuples, walls, phases):
+            print(f"[sharded] {what} -H on {len(devs)} shard(s) ({describe(devs)}), "
+                  f"{SHARDED_ROUNDS} runs in turns, s: wall {samples(w, fmt='%.3f')}; "
+                  + "; ".join(f"{n} {samples(x, fmt='%.3f')}" for n, x in ph.items()))
+    for devs in configs:
+        print(f"[sharded] {dryrun_multichip(devs)}")
+
+
+def phase_sharded(single):
+    """Phase 7. `single` holds the one-card runs of SHARDED_RUNS from phases
+    3-4."""
+    import torch
+
+    configs = shard_configs()
+    print(f"[sharded] {torch.cuda.device_count()} card(s) visible; shard tuples: "
+          + "; ".join(describe(d) for d in configs))
+    t0 = time.perf_counter()
+    flush = {d: torch.empty(256 << 20, dtype=torch.uint8, device=d)
+             for d in {d for c in configs for d in c}}
+    phase_sharded_engine(configs, flush)
+    del flush
+    phase_sharded_upload(configs)
+    phase_sharded_cli(configs, single)
+    print(f"[sharded] phase 7 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "panacus_torch")):
         fail("panacus_torch not found: run from the root of a checkout")
@@ -1018,12 +1370,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device")
     sys.path.insert(0, ROOT)
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", 0)
     smi = phase_env()
     res = phase_kernels(dev)
     res.update(phase_group_kernels(dev))
-    launches, edge_hist = phase_main_path(dev)
-    group_launches, ordered_edge, similarity_node = phase_group_path(dev)
+    single = {}  # the one-card runs that phase 7 repeats on shards
+    launches, edge_hist = phase_main_path(dev, single)
+    group_launches, ordered_edge, similarity_node = phase_group_path(dev, single)
     for name in ("pt_ordered_growth", "pt_similarity"):
         launches[name] = group_launches[name]
     phase_path_kernels(dev, edge_hist, ordered_edge, similarity_node, res)
@@ -1032,6 +1385,8 @@ def main() -> int:
     res.update(probe_res)
     launches.update(probe_launches)
     report_launches = phase_report_path(dev)
+    phase_sharded(single)
+    del single
     for name, r in res.items():
         r["report_launches"] = report_launches[name]
     for name, r in res.items():

@@ -14,13 +14,12 @@ import logging
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from .gfa import GraphStorage, ItemTable, PathSegment
 from .itemize import ItemizeResult
 from .mask import GraphMask
 from .native import build_membership, format_table
-from .ops.engine import CountingEngine
+from .ops.engine import CountingEngine, Devices
 from .runtime import effective_threads
 from .utils import ActiveTable, CountType, IntervalContainer, Threshold
 
@@ -143,10 +142,10 @@ class AbacusByTotal:
         path_order: List[Tuple[int, int]],
         groups: List[str],
         graph: GraphStorage,
-        device: torch.device,
+        devices: Devices,
     ) -> "AbacusByTotal":
         n_items = graph.number_of_items(count)
-        engine = CountingEngine(n_items, len(groups), device)
+        engine = CountingEngine(n_items, len(groups), devices)
         M_host = build_membership_host(
             itemized.item_tables[slot],
             path_order,
@@ -249,10 +248,10 @@ class AbacusByGroup:
         path_order: List[Tuple[int, int]],
         groups: List[str],
         graph: GraphStorage,
-        device: torch.device,
+        devices: Devices,
     ) -> "AbacusByGroup":
         total = AbacusByTotal.from_itemization(
-            count, slot, itemized, path_order, groups, graph, device
+            count, slot, itemized, path_order, groups, graph, devices
         )
         return cls(
             count, total.engine, groups, total.uncovered_bps, graph, itemized,

@@ -1,7 +1,7 @@
 """High-level Python API of the port.
 
 The port's copy of panacus_tpu/api.py, on the port's broker: the same
-methods and results, with the membership matrices on a torch device.
+methods and results, with the membership matrices split over torch devices.
 
     import panacus_torch.api as pt
 
@@ -18,18 +18,19 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from .broker import GraphBroker, GraphState, Req
 from .config import Grouping
-from .runtime import resolve_device
+from .ops.engine import DeviceArg
+from .runtime import resolve_devices
 from .utils import CountType, ThresholdContainer
 
 
 class Pangenome:
-    """One graph + mask state, its abaci on `device` (None: the device that
-    runtime.resolve_device names, the card unless PANACUS_TORCH_DEVICE=cpu;
-    without a card it raises)."""
+    """One graph + mask state, its abaci on `device`: a device or a tuple of
+    them, the membership matrices split over the tuple (None: the devices
+    that runtime.resolve_devices names, every visible GPU unless
+    PANACUS_TORCH_DEVICE=cpu; without a card it raises)."""
 
     def __init__(
         self,
@@ -39,7 +40,7 @@ class Pangenome:
         exclude: str = "",
         count: str = "all",
         nice: bool = False,
-        device: Optional[torch.device] = None,
+        device: Optional[DeviceArg] = None,
     ):
         g = None
         if grouping in ("sample", "Sample", "-S"):
@@ -56,7 +57,7 @@ class Pangenome:
             reqs.add(Req.BP)
         if ct in (CountType.EDGE, CountType.ALL):
             reqs.add(Req.EDGE)
-        self._gb = GraphBroker(resolve_device() if device is None else device)
+        self._gb = GraphBroker(resolve_devices() if device is None else device)
         self._gb.change_graph_state(
             GraphState(
                 graph=gfa_file,

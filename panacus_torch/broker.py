@@ -2,9 +2,9 @@
 
 Port of panacus_tpu/broker.py (reference: src/graph_broker.rs:31-433). It
 builds the total abaci (the streamed build for unmasked runs, the classic
-itemizer for masked ones) on one torch device, their histograms, and the
-group abacus of ordered growth, similarity and the coverage table, which
-shares the total abacus's engine.
+itemizer for masked ones) split over a tuple of torch devices, their
+histograms, and the group abacus of ordered growth, similarity and the
+coverage table, which shares the total abacus's engine.
 """
 
 from __future__ import annotations
@@ -14,13 +14,13 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
-import torch
 
 from .abacus import AbacusByGroup, AbacusByTotal, construct_hists, path_order_groups
 from .gfa import GraphStorage, PathSegment
 from .hist import Hist
 from .itemize import itemize_paths
 from .mask import GraphMask, GraphMaskParameters
+from .ops.engine import DeviceArg, as_devices
 from .runtime import phase_timer
 from .stream import streamed_total_abaci
 from .utils import CountType
@@ -60,8 +60,8 @@ class GraphState:
 
 
 class GraphBroker:
-    def __init__(self, device: torch.device):
-        self.device = device
+    def __init__(self, devices: DeviceArg):
+        self.devices = as_devices(devices)
         self.state: Optional[GraphState] = None
         self.graph_aux: Optional[GraphStorage] = None
         self.name = ""
@@ -200,7 +200,7 @@ class GraphBroker:
         log.info("calculating abaci for count_types: %s", count_types)
         with phase_timer("abaci_by_total"):
             streamed = streamed_total_abaci(
-                self.graph_aux, self.mask, count_types, self.device
+                self.graph_aux, self.mask, count_types, self.devices
             )
             if streamed is not None:
                 abaci, itemized, path_order, groups = streamed
@@ -212,7 +212,7 @@ class GraphBroker:
                 abaci = {
                     ct: AbacusByTotal.from_itemization(
                         ct, slot, itemized, path_order, groups,
-                        self.graph_aux, self.device,
+                        self.graph_aux, self.devices,
                     )
                     for slot, ct in enumerate(count_types)
                 }
@@ -254,7 +254,7 @@ class GraphBroker:
             self._path_order,
             self._ordered_groups,
             self.graph_aux,
-            self.device,
+            self.devices,
         )
 
     # -- getters (reference: graph_broker.rs:249-343) -------------------------

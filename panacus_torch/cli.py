@@ -5,8 +5,9 @@ The parser and the translation of arguments into analysis runs
 (reference: src/lib.rs:77-222, src/commands/*.rs), so the port takes the
 same flags and runs the same ten subcommands: report, render, hist,
 growth (on a graph or a hist TSV), histgrowth, info, ordered-histgrowth,
-table, node-distribution and similarity. Counting runs on the device that
-runtime.resolve_device names (PANACUS_TORCH_DEVICE). The multi-host
+table, node-distribution and similarity. Counting runs on the devices that
+runtime.resolve_devices names (PANACUS_TORCH_DEVICE: every visible GPU,
+or the CPU), the membership matrices split over them. The multi-host
 branch of panacus_tpu's run_cli is not ported.
 """
 
@@ -15,11 +16,14 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
-from typing import List, Optional
+from typing import TYPE_CHECKING, List, Optional
 
 from .config import AnalysisParameter, AnalysisRun, Grouping
-from .runtime import resolve_device, set_num_threads
+from .runtime import resolve_devices, set_num_threads
 from .utils import CountType
+
+if TYPE_CHECKING:
+    from .ops.engine import DeviceArg
 
 log = logging.getLogger("panacus")
 
@@ -436,7 +440,9 @@ EXAMPLE_YAML = """
 """
 
 
-def run_cli(argv: Optional[List[str]] = None) -> int:
+def run_cli(argv: Optional[List[str]] = None, devices: Optional[DeviceArg] = None) -> int:
+    """Run one subcommand; `devices` are those the membership matrices are
+    split over (None: runtime.resolve_devices())."""
     args = build_parser().parse_args(argv)
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
@@ -521,7 +527,9 @@ def run_cli(argv: Optional[List[str]] = None) -> int:
             print(f"    {t!r},")
         print("]")
         return 0
-    execute_pipeline(tasks, out, resolve_device(), shall_write_html, json)
+    if devices is None:
+        devices = resolve_devices()
+    execute_pipeline(tasks, out, devices, shall_write_html, json)
     out.flush()
     return 0
 

@@ -65,7 +65,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import probe, runtime, testgraphs
+from . import probe, testgraphs
 from .ops import group_kernels as gk
 from .ops import hist_kernels as hk
 from .ops import kernels
@@ -123,15 +123,21 @@ def thresholds(n_groups: int, quorum: float) -> torch.Tensor:
 @contextlib.contextmanager
 def capture():
     """Record the arguments that the engine hands hist_kernels.fused_hist,
-    group_kernels.ordered_growth and group_kernels.similarity while the
-    block runs; the calls go through (and count their launches) as before."""
-    calls: Dict[str, list] = {"pt_fused_hist": [], "pt_ordered_growth": [],
-                              "pt_similarity": []}
-    fused_hist, ordered_growth, similarity = hk.fused_hist, gk.ordered_growth, gk.similarity
+    hist_kernels.coverage, group_kernels.ordered_growth and
+    group_kernels.similarity while the block runs; the calls go through
+    (and count their launches) as before."""
+    calls: Dict[str, list] = {"pt_fused_hist": [], "pt_coverage": [],
+                              "pt_ordered_growth": [], "pt_similarity": []}
+    fused_hist, coverage = hk.fused_hist, hk.coverage
+    ordered_growth, similarity = gk.ordered_growth, gk.similarity
 
     def fused_hist_spy(M, W, n_bins):
         calls["pt_fused_hist"].append((M, W, n_bins))
         return fused_hist(M, W, n_bins)
+
+    def coverage_spy(M):
+        calls["pt_coverage"].append((M,))
+        return coverage(M)
 
     def ordered_growth_spy(M, w, thr, c_min):
         calls["pt_ordered_growth"].append((M, w, thr, c_min))
@@ -141,23 +147,24 @@ def capture():
         calls["pt_similarity"].append((M, w, w_max))
         return similarity(M, w, w_max)
 
-    hk.fused_hist, gk.ordered_growth, gk.similarity = (
-        fused_hist_spy, ordered_growth_spy, similarity_spy)
+    hk.fused_hist, hk.coverage, gk.ordered_growth, gk.similarity = (
+        fused_hist_spy, coverage_spy, ordered_growth_spy, similarity_spy)
     try:
         yield calls
     finally:
-        hk.fused_hist, gk.ordered_growth, gk.similarity = fused_hist, ordered_growth, similarity
+        hk.fused_hist, hk.coverage = fused_hist, coverage
+        gk.ordered_growth, gk.similarity = ordered_growth, similarity
 
 
 def path_inputs(gfa: str):
     """(fused_hist args of the edge pass, [ordered_growth args] of the edge
-    run) from one run of each command through the port's CLI on cuda."""
+    run) from one run of each command through the port's CLI on the first
+    card alone (one shard: the arguments are whole matrices)."""
     from .cli import run_cli
 
-    os.environ[runtime.DEVICE_ENV] = "cuda"
     with capture() as calls, contextlib.redirect_stdout(io.StringIO()):
         for argv in (HISTGROWTH_ARGV + [gfa], ORDERED_ARGV + ["-c", "edge", gfa]):
-            if run_cli(argv) != 0:
+            if run_cli(argv, devices=(torch.device("cuda", 0),)) != 0:
                 raise RuntimeError(f"{argv} failed")
     torch.cuda.synchronize()
     edge_hist = max(calls["pt_fused_hist"], key=lambda a: a[0].shape[1])

@@ -13,11 +13,10 @@ import logging
 from dataclasses import dataclass
 from typing import IO, List, Optional, Set, Union
 
-import torch
-
 from .analyses import Analysis, construct_analysis
 from .broker import GraphBroker, GraphState, Req
 from .config import AnalysisParameter, AnalysisRun, Grouping
+from .ops.engine import DeviceArg
 from .report.sections import AnalysisSection
 from .runtime import phase_timer
 
@@ -113,18 +112,18 @@ def convert_to_tasks(runs: List[AnalysisRun]) -> List[Task]:
 def execute_pipeline(
     tasks: List[Task],
     out: IO[str],
-    device: torch.device,
+    devices: DeviceArg,
     shall_write_html: bool = False,
     json: bool = False,
 ) -> None:
-    """Apply the tasks in order against one broker on `device`, then write
-    the JSON report, the HTML report or the last analysis's table
-    (reference: src/lib.rs:235-311)."""
+    """Apply the tasks in order against one broker on `devices` (M split
+    over them), then write the JSON report, the HTML report or the last
+    analysis's table (reference: src/lib.rs:235-311)."""
     if not tasks:
         log.warning("No instructions supplied")
         return
     report: List[AnalysisSection] = []
-    gb = GraphBroker(device)
+    gb = GraphBroker(devices)
     for task in tasks:
         if isinstance(task, AnalysisTask):
             log.info("Executing Analysis: %s", task.analysis.get_type())

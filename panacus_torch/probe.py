@@ -215,8 +215,8 @@ def read_ceiling_bps(
     seed: int = 0,
 ) -> float:
     """Bytes per second of the raw-read control (pt_xor_fold) on `device`
-    (default: runtime.resolve_device()) at M [n_words, n_items]."""
-    device = runtime.resolve_device() if device is None else torch.device(device)
+    (default: the first of runtime.resolve_devices()) at M [n_words, n_items]."""
+    device = runtime.resolve_devices()[0] if device is None else torch.device(device)
     M, w = make_inputs(device, n_words, n_items, seed)
     return pass_bytes(M, w) / pass_seconds(pass_fn("read", M, w), K_READ, device)
 
@@ -293,7 +293,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.words < 1 or args.items < 4 or args.items % 4 or args.rounds < 1:
         ap.error("need --words >= 1, --items a positive multiple of 4, --rounds >= 1")
     variants = list(dict.fromkeys(args.variants or DEFAULT_VARIANTS))
-    device = runtime.resolve_device()
+    device = runtime.resolve_devices()[0]
     M, w = make_inputs(device, args.words, args.items, args.seed)
     nbytes = pass_bytes(M, w)
     print(f"probe on {device_label(device)}: M {args.words} x {args.items}, "

@@ -1,8 +1,8 @@
-"""Runtime settings of the port: host threads and memory, the torch device,
+"""Runtime settings of the port: host threads and memory, the torch devices,
 phase timing.
 
 The host half (set_num_threads, effective_threads, configure_host_memory)
-is panacus_tpu/runtime.py's; torch is imported only where the device is
+is panacus_tpu/runtime.py's; torch is imported only where the devices are
 resolved, so the host layers that read the thread count do not load it.
 """
 
@@ -81,15 +81,17 @@ def configure_host_memory() -> None:
         log.debug("hugepage allocator unavailable: %s", e)
 
 
-def resolve_device():
-    """The torch device the membership matrices live on:
-    PANACUS_TORCH_DEVICE, `cuda` (the default) or `cpu`. The default never
-    falls back to the CPU: without a CUDA device it raises."""
+def resolve_devices():
+    """The torch devices the membership matrices are split over, one item
+    shard each: every visible GPU under PANACUS_TORCH_DEVICE=cuda (the
+    default; CUDA_VISIBLE_DEVICES picks which), as indexed devices, or the
+    CPU alone under PANACUS_TORCH_DEVICE=cpu. The default never falls back
+    to the CPU: without a CUDA device it raises."""
     import torch
 
     want = os.environ.get(DEVICE_ENV, "cuda")
     if want == "cpu":
-        return torch.device("cpu")
+        return (torch.device("cpu"),)
     if want != "cuda":
         raise ValueError(f"{DEVICE_ENV} must be 'cuda' or 'cpu', got {want!r}")
     if not torch.cuda.is_available():
@@ -97,7 +99,7 @@ def resolve_device():
             f"no CUDA device is available; set {DEVICE_ENV}=cpu to count on "
             "the CPU"
         )
-    return torch.device("cuda")
+    return tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
 
 
 class phase_timer:

@@ -28,7 +28,6 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from .abacus import AbacusByTotal, path_order_groups
 from .gfa import GraphStorage, PathSegment, SlabbedItemTable
@@ -41,7 +40,7 @@ from .native import (
     lookup_edges_adj,
     pack_edges_adj,
 )
-from .ops.engine import MembershipStream
+from .ops.engine import Devices, MembershipStream
 from .runtime import effective_threads
 from .utils import CountType
 
@@ -204,7 +203,7 @@ def streamed_total_abaci(
     graph: GraphStorage,
     mask: GraphMask,
     count_types: List[CountType],
-    device: torch.device,
+    devices: Devices,
 ):
     """Unmasked abacus build. Returns (abaci, itemized, path_order, groups),
     or None when the classic path must run (masks present / native
@@ -224,7 +223,7 @@ def streamed_total_abaci(
     need_node = any(ct != CountType.EDGE for ct in count_types)
 
     node_stream = (
-        MembershipStream(graph.number_of_items(CountType.NODE), n_groups, device)
+        MembershipStream(graph.number_of_items(CountType.NODE), n_groups, devices)
         if need_node
         else None
     )
@@ -240,14 +239,14 @@ def streamed_total_abaci(
         len(slabs),
         n_groups,
         count_types,
-        device,
+        ", ".join(map(str, devices)),
     )
 
     def make_edge_stream():
         """Create the edge stream and table; joins the async L-line indexer."""
         nonlocal edge_stream, edge_table, edge_fused
         edge_stream = MembershipStream(
-            graph.number_of_items(CountType.EDGE), n_groups, device
+            graph.number_of_items(CountType.EDGE), n_groups, devices
         )
         edge_fused = get_lib() is not None and graph.edge_adj() is not None
         edge_table = (

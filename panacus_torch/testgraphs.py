@@ -12,8 +12,10 @@ that `chip_smoke.py` needs nothing outside panacus_torch:
   600-node graph (DRYRUN_NODES; DRYRUN_SAMPLES samples x 2 haplotypes) and
   its independent numpy recomputations of membership, hists and ordered
   growth.
+- `dryrun_multichip`: the counterpart of __graft_entry__.dryrun_multichip,
+  the port's broker on that graph with M split over a tuple of devices.
 
-numpy only.
+numpy only at import (dryrun_multichip loads the port's broker).
 """
 
 from __future__ import annotations
@@ -181,3 +183,117 @@ def _oracle_ordered(node_mem, weights, c_min, quorum):
         ok = (cum >= np.maximum(thr, 1)) & (total >= c_min)
         res[j] = int(weights[ok].sum())
     return res
+
+
+def dryrun_multichip(devices) -> str:
+    """The port's counting path, GraphBroker on the dryrun GFA with every
+    engine split over `devices` (a tuple, one item shard each; e.g. every
+    visible GPU, or one device named several times), checked against the
+    numpy oracles (node, bp and edge hists, the m = n union growth, ordered
+    growth at three thresholds, the similarity intersections) and against
+    the same broker, and the same engine ops on the same M, on the first
+    device alone. A subset + exclude BED run (the classic itemizer's
+    build) is held against its single-device run too. Raises
+    AssertionError on a mismatch; returns a one-line summary."""
+    import tempfile
+
+    from .broker import GraphBroker, GraphState, Req
+    from .config import Grouping
+    from .ops.engine import CountingEngine, as_devices
+    from .utils import CountType, Threshold, ThresholdContainer
+
+    devices = as_devices(devices)
+    with tempfile.TemporaryDirectory() as td:
+        gfa = os.path.join(td, "dryrun.gfa")
+        visits, lens, edges = _write_dryrun_gfa(gfa)
+        node_mem, node_hist, bp_hist, edge_hist = _oracle(visits, lens, edges)
+        reqs = {
+            Req.graph(gfa), Req.NODE, Req.BP, Req.EDGE, Req.HIST,
+            Req.abacus_by_group(CountType.NODE),
+        }
+        gb = GraphBroker(devices)
+        gb.change_graph_state(
+            GraphState(graph=gfa, name="dryrun", grouping=Grouping.sample()),
+            reqs,
+            nice=False,
+        )
+        eng = gb.get_abacus_by_total(CountType.NODE).engine
+        assert eng.devices == devices and len(eng.shards) == len(devices), (
+            "the broker's engine is not split over the devices"
+        )
+        assert all(m.device == d for m, d in zip(eng.shards, devices))
+
+        hists = gb.get_hists()
+        for ct, want in (
+            (CountType.NODE, node_hist),
+            (CountType.BP, bp_hist),
+            (CountType.EDGE, edge_hist),
+        ):
+            got = np.asarray(hists[ct].coverage)
+            assert np.array_equal(got, want), (ct, got, want)
+        tc = ThresholdContainer.parse_params(quorum="0", coverage="1")
+        growth = hists[CountType.NODE].calc_all_growths(tc)[0]
+        assert abs(growth[-1] - float(node_hist[1:].sum())) < 1e-6
+
+        ab = gb.get_abacus_by_group()
+        w1 = np.ones(DRYRUN_NODES + 1, dtype=np.int64)
+        w1[0] = 0
+        for c, q in [(1, 0.0), (2, 0.0), (1, 0.5)]:
+            got = np.asarray(ab.calc_growth(Threshold.absolute(c), Threshold.rel(q)))
+            want = _oracle_ordered(node_mem, w1, c, q).astype(np.float64)
+            assert np.array_equal(got, want), (c, q, got, want)
+        inter, _ = ab.similarity_matrix()
+        want_inter = node_mem.astype(np.int64) @ node_mem.astype(np.int64).T
+        assert np.array_equal(inter.astype(np.int64), want_inter)
+
+        # the same ops on the same M, on the first device alone
+        M = np.concatenate([m.cpu().numpy() for m in eng.shards], axis=1)
+        e1 = CountingEngine.from_host_state(
+            M.view(np.uint32), eng.n_items, eng.n_groups, devices[:1]
+        )
+        assert np.array_equal(eng.hist(None), e1.hist(None))
+        og = eng.ordered_growth(w1, 0.5, 1)
+        assert np.array_equal(og, e1.ordered_growth(w1, 0.5, 1))
+        assert np.array_equal(eng.similarity(w1), e1.similarity(w1))
+        assert np.array_equal(eng.coverage(), e1.coverage())
+
+        # subset + exclude: the classic itemizer's build, on the shards and
+        # on the first device alone
+        p_bp = [int(lens[v].sum()) for v in visits[0::2]]
+        subset = os.path.join(td, "subset.bed")
+        exclude = os.path.join(td, "exclude.bed")
+        with open(subset, "w") as f:
+            f.write(
+                f"s0#0#chr1\t3\t{p_bp[0] - 7}\ns1#0#chr1\t0\t{p_bp[1]}\n"
+                "s2#0#chr1\t0\t10\ns2#0#chr1\t20\t50\ns3#0#chr1\n"
+            )
+        with open(exclude, "w") as f:
+            f.write("s1#0#chr1\t5\t9\n")
+        masked = {}
+        for devs in (devices, devices[:1]):
+            gbm = GraphBroker(devs)
+            gbm.change_graph_state(
+                GraphState(graph=gfa, name="dryrun-masked", subset=subset,
+                           exclude=exclude, grouping=Grouping.sample()),
+                {Req.graph(gfa), Req.NODE, Req.BP, Req.HIST},
+                nice=False,
+            )
+            mh = gbm.get_hists()
+            masked[len(devs)] = [
+                np.asarray(mh[ct].coverage) for ct in (CountType.NODE, CountType.BP)
+            ]
+        m_node, m_bp = masked[len(devices)]
+        assert all(np.array_equal(a, b) for a, b in zip(masked[len(devices)], masked[1]))
+        assert not np.array_equal(m_node, node_hist), "the mask did not engage"
+
+    distinct = len(set(devices))
+    return (
+        f"dryrun_multichip ok: {len(devices)} shards on {distinct} distinct "
+        f"device(s) ({', '.join(map(str, devices))}), broker on the dryrun GFA "
+        f"({DRYRUN_NODES} nodes, {len(edges)} edges, {2 * DRYRUN_SAMPLES} paths): "
+        f"node hist={node_hist.tolist()}, bp hist={bp_hist.tolist()}, "
+        f"edge hist={edge_hist.tolist()}, growth[-1]={growth[-1]:.1f}, "
+        f"ordered[-1]={og[-1]}, sim trace={np.trace(inter):.0f}; masked node "
+        f"hist={m_node.tolist()} bp hist={m_bp.tolist()} (oracle-exact, "
+        f"sharded == single-device)"
+    )

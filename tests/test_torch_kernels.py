@@ -329,4 +329,4 @@ def test_membership_stream_on_cuda(cuda_device):
     for a, b in zip(cpu.hist_multi([None, bp]), gpu.hist_multi([None, bp])):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(cpu.coverage(), gpu.coverage())
-    assert isinstance(gpu, CountingEngine) and gpu.M.is_cuda
+    assert isinstance(gpu, CountingEngine) and all(m.is_cuda for m in gpu.shards)

@@ -3,7 +3,9 @@
 - A fresh interpreter runs `histgrowth -c all`, `ordered-histgrowth`,
   `similarity`, `table`, `report --json` (every analysis kind that adds a
   section) and `render` of that JSON through panacus_torch on the CPU, then
-  the probe entry point (panacus_torch.probe), and must finish with no
+  the probe entry point (panacus_torch.probe), an `ordered-histgrowth`
+  with M split over three CPU shards, testgraphs.dryrun_multichip on two
+  and CountingEngine.build from pairs, and must finish with no
   `jax` and no `panacus_tpu` module loaded; `python -m panacus_torch.probe` run under
   `-X importtime` imports neither.
 - An AST scan of every module of panacus_torch and of chip_smoke.py finds
@@ -49,6 +51,15 @@ assert rc == 0, rc
 from panacus_torch import probe
 rc = probe.main(["--words", "2", "--items", "16384", "--rounds", "1", "read", "paritym"])
 assert rc == 0, rc
+with contextlib.redirect_stdout(io.StringIO()):
+    rc = run_cli(["ordered-histgrowth", "-c", "node", "-S", sys.argv[1]], devices=("cpu",) * 3)
+assert rc == 0, rc
+from panacus_torch.testgraphs import dryrun_multichip
+assert dryrun_multichip(("cpu",) * 2).startswith("dryrun_multichip ok")
+import numpy as np
+from panacus_torch.ops.engine import CountingEngine
+eng = CountingEngine(10, 40, ("cpu",) * 2).build(np.array([1, 10, 10]), np.array([31, 39, 31]))
+assert eng.hist().tolist()[:3] == [8, 1, 1], eng.hist()
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not loaded, loaded
 loaded = sorted(m for m in sys.modules if m.startswith("panacus_tpu"))

@@ -367,7 +367,7 @@ def test_api_matches_jax(graphs, tmp_path, graph, grouping, subset):  # noqa: F8
     s = str(graphs / "subset.bed") if subset else ""
     want = jpt.Pangenome(gfa, grouping=g, subset=s)
     got = tpt.Pangenome(gfa, grouping=g, subset=s, device=torch.device("cpu"))
-    assert got.broker.device == torch.device("cpu")
+    assert got.broker.devices == (torch.device("cpu"),)
     assert got.groups == want.groups
     for count in ("node", "bp", "edge"):
         np.testing.assert_array_equal(got.histogram(count), want.histogram(count))
@@ -401,8 +401,8 @@ def test_api_matches_jax(graphs, tmp_path, graph, grouping, subset):  # noqa: F8
 
 
 def test_api_default_device_is_the_card(graphs, monkeypatch):  # noqa: F811
-    """Without a device the API takes runtime.resolve_device's: the card,
-    or a raise where there is none; never a silent CPU."""
+    """Without a device the API takes runtime.resolve_devices': every
+    visible card, or a raise where there is none; never a silent CPU."""
     import torch
 
     import panacus_torch.api as tpt
@@ -410,12 +410,13 @@ def test_api_default_device_is_the_card(graphs, monkeypatch):  # noqa: F811
     monkeypatch.delenv("PANACUS_TORCH_DEVICE", raising=False)
     gfa = str(graphs / "dryrun.gfa")
     if torch.cuda.is_available():
-        assert tpt.Pangenome(gfa).broker.device.type == "cuda"
+        devices = tpt.Pangenome(gfa).broker.devices
+        assert devices == tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
     else:
         with pytest.raises(RuntimeError):
             tpt.Pangenome(gfa)
     monkeypatch.setenv("PANACUS_TORCH_DEVICE", "cpu")
-    assert tpt.Pangenome(gfa).broker.device.type == "cpu"
+    assert tpt.Pangenome(gfa).broker.devices == (torch.device("cpu"),)
 
 
 def test_report_frees_the_previous_runs_abaci(graphs, monkeypatch):  # noqa: F811

@@ -140,17 +140,21 @@ def test_every_subcommand_runs(capsys, monkeypatch, graphs, tmp_path, command):
 def test_default_device_never_falls_back(monkeypatch):
     import torch
 
-    from panacus_torch.runtime import resolve_device
+    from panacus_torch.runtime import resolve_devices
 
     monkeypatch.delenv("PANACUS_TORCH_DEVICE", raising=False)
     if torch.cuda.is_available():
-        assert resolve_device().type == "cuda"
+        assert resolve_devices() == tuple(
+            torch.device("cuda", i) for i in range(torch.cuda.device_count())
+        )
     else:
         with pytest.raises(RuntimeError):
-            resolve_device()
+            resolve_devices()
+    monkeypatch.setenv("PANACUS_TORCH_DEVICE", "cpu")
+    assert resolve_devices() == (torch.device("cpu"),)
     monkeypatch.setenv("PANACUS_TORCH_DEVICE", "tpu")
     with pytest.raises(ValueError):
-        resolve_device()
+        resolve_devices()
 
 
 @pytest.mark.parametrize(
