@@ -96,13 +96,30 @@ Phases, one or more lines each on stdout:
    pipeline phases as medians and samples. Then
    testgraphs.dryrun_multichip on each tuple. It prints "devices:
    <distinct> distinct of <k> shards".
+8. multi-process: the port's CLI as 2 ranks of a torch.distributed
+   process group, launched as torchrun launches them
+   (panacus_torch.parallel.launch, each rank one process that runs every
+   command): `histgrowth -c all`, `ordered-histgrowth -c edge`,
+   `similarity -c node` and the subset-masked `histgrowth -c all` of
+   phases 3-4 on the graph of phase 3, and `table -c node -H` on the
+   dryrun graph. Each rank tokenizes only its group range, M is
+   assembled across the ranks and the hand kernels run on each rank's
+   columns. Rank 0's TSVs must equal the one-process runs of phases 3-4
+   (the table: a one-process run here), rank 1 must write nothing, and
+   every rank must have launched pt_fused_hist on CUDA shards (the
+   launches each rank process counted from 0). Layouts: 2 ranks sharing
+   the first card (gloo) and, with two or more GPUs visible, 2 ranks with
+   their own cards (NCCL). Per rank it prints the devices, the backend,
+   the payload share it tokenized, the walls, the phases and the
+   launches. A rank that fails or hangs fails the phase.
 
 Phases 3, 4 and 6 run on the first card alone (one shard), whatever the
 number of cards, so their launch counts and times compare across machines.
 
 The line before the last is a JSON object with one entry per kernel (its
-launches are those of the path it belongs to, and `report_launches` those
-of phase 6; its times at the largest shape that path hands it, by events
+launches are those of the path it belongs to, `report_launches` those
+of phase 6 and `multiprocess_launches` those of phase 8's first layout,
+summed over its ranks; its times at the largest shape that path hands it, by events
 as `ms` and, where taken, by slope as `slope_ms`; under `path`, phase
 4b's times); the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero without that
@@ -497,6 +514,22 @@ def bench_graph() -> str:
     return gfa
 
 
+def subset_bed():
+    """(path, number of paths) of the subset BED of phase 3: a 1.5 Mbp
+    region of each P-line haplotype of the bench graph."""
+    from panacus_torch import testgraphs as tg
+
+    subset = os.path.join(WORK, "subset.bed")
+    n_subset = (tg.N_PATHS + 1) // 2  # haplotype 0 of each sample: P lines
+    # a path spells ~3.4 bp per graph node (gaps 1-4, node lengths 1-16):
+    # bp 1.0M-2.5M of each at the default 900k nodes
+    lo, hi = tg.N_NODES * 10 // 9, tg.N_NODES * 25 // 9
+    with open(subset, "w") as f:
+        for k in range(n_subset):
+            f.write(f"s{k}#0#chr1\t{lo + 7 * k}\t{hi + 11 * k}\n")
+    return subset, n_subset
+
+
 def check_growth_table(out: str, n_groups: int, what: str) -> str:
     """The histgrowth TSV body: 4 header rows, n_groups + 1 count rows of
     9 columns after the index, every growth value finite."""
@@ -525,14 +558,7 @@ def phase_main_path(dev, single):
     from panacus_torch.ops import kernels
 
     gfa = bench_graph()
-    subset = os.path.join(WORK, "subset.bed")
-    n_subset = (tg.N_PATHS + 1) // 2  # haplotype 0 of each sample: P lines
-    # a path spells ~3.4 bp per graph node (gaps 1-4, node lengths 1-16):
-    # bp 1.0M-2.5M of each at the default 900k nodes
-    lo, hi = tg.N_NODES * 10 // 9, tg.N_NODES * 25 // 9
-    with open(subset, "w") as f:
-        for k in range(n_subset):
-            f.write(f"s{k}#0#chr1\t{lo + 7 * k}\t{hi + 11 * k}\n")
+    subset, n_subset = subset_bed()
     unmasked = HISTGROWTH + [gfa]
     masked = HISTGROWTH + ["-s", subset, gfa]
 
@@ -543,6 +569,8 @@ def phase_main_path(dev, single):
     single["histgrowth -c all"] = (unmasked, table(out_big)[0], counts_unmasked,
                                    per_matrix(calls), wall)
     out_masked, phases_masked, wall_masked = drive(masked, "cuda")
+    single["subset-masked histgrowth -c all"] = (masked, table(out_masked)[0], None, None,
+                                                 wall_masked)
     launches = dict(kernels.launches)
     counts_masked = {k: launches[k] - counts_unmasked[k] for k in launches}
 
@@ -1362,6 +1390,104 @@ def phase_sharded(single):
     print(f"[sharded] phase 7 took {time.perf_counter() - t0:.1f} s")
 
 
+# phase 8: the CLI as two processes of a process group
+MULTI_RUNS = SHARDED_RUNS + ("subset-masked histgrowth -c all",)
+MULTI_RANKS = 2
+# the least launches of each kernel on each shard of a rank, per command
+MULTI_LEAST = {
+    "histgrowth -c all": {"pt_fused_hist": 2},
+    "ordered-histgrowth -c edge": {"pt_ordered_growth": 3},
+    "similarity -c node": {"pt_similarity": 1},
+    "subset-masked histgrowth -c all": {"pt_fused_hist": 1},
+}
+
+
+def multi_layouts():
+    """(label, extra environment) of each layout phase 8 runs."""
+    import torch
+
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    first = visible.split(",")[0] if visible else "0"
+    out = [("2 ranks sharing the first card", {"CUDA_VISIBLE_DEVICES": first})]
+    if torch.cuda.device_count() >= 2:
+        out.append(("2 ranks with their own cards", {}))
+    return out
+
+
+def phase_multiprocess(single):
+    """Phase 8. `single` holds the one-process runs of MULTI_RUNS from phases
+    3-4. Returns each kernel's launches, summed over the ranks, in the
+    first layout."""
+    from panacus_torch.parallel.launch import launch
+
+    t_phase = time.perf_counter()
+    small = os.path.join(WORK, "dryrun.gfa")
+    table_argv = ["table", "-c", "node", "-H", small]
+    table_body = table(drive(table_argv, "cuda")[0])[0]
+    runs = [(what, single[what][0], single[what][1], single[what][4]) for what in MULTI_RUNS]
+    runs.append(("table -c node -H (dryrun graph)", table_argv, table_body, None))
+    spec = os.path.join(WORK, "multiprocess_commands.json")
+    with open(spec, "w") as f:
+        json.dump([argv for _, argv, _, _ in runs], f)
+    first_launches = None
+    for label, extra in multi_layouts():
+        report = os.path.join(WORK, "multiprocess")
+        env = {**os.environ, "PANACUS_TORCH_DEVICE": "cuda", **extra}
+        t0 = time.perf_counter()
+        outs = launch(
+            [sys.executable, "-m", "panacus_torch.parallel.launch", report, spec],
+            MULTI_RANKS,
+            env=env,
+            cwd=ROOT,
+            timeout=420,
+        )
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(MULTI_RANKS):
+            with open(f"{report}.{r}.json") as f:
+                ranks.append(json.load(f))
+        print(f"[multi] {label}: {MULTI_RANKS} ranks in {wall:.3f} s of wall "
+              "(process start, torch import, process group, every command)")
+        if outs[1][0]:
+            fail(f"{label}: rank 1 wrote to stdout: {outs[1][0][:200]!r}")
+        totals = {}
+        for r, info in enumerate(ranks):
+            if info["rank"] != r or info["world_size"] != MULTI_RANKS:
+                fail(f"{label}: rank {r} reports rank {info['rank']} of {info['world_size']}")
+            if not all(d.startswith("cuda") for d in info["devices"]):
+                fail(f"{label}: rank {r} counted on {info['devices']}")
+            print(f"[multi] {label}: rank {r} on {', '.join(info['devices'])}, device "
+                  f"collectives on {info['backend']}")
+            for (what, _, body, wall_one), res in zip(runs, info["commands"]):
+                got = table(res["out"])[0]
+                if r == 0 and got != body:
+                    fail(f"{label}: {what} TSV of rank 0 differs from the one-process run")
+                if r > 0 and res["out"]:
+                    fail(f"{label}: rank {r} wrote output for {what}")
+                launched = {k: v for k, v in res["launches"].items() if v}
+                for k, v in launched.items():
+                    totals[k] = totals.get(k, 0) + v
+                for name, least in MULTI_LEAST.get(what, {}).items():
+                    if res["launches"][name] < least * len(info["devices"]):
+                        fail(f"{label}: {what} on rank {r} launched {name} "
+                             f"{res['launches'][name]} times on {len(info['devices'])} shards")
+                share = (f"{res['payload'][0] / res['payload'][1]:.4f} of "
+                         f"{res['payload'][1]} path payload bytes" if res["payload"] else "n/a")
+                one = f" (one process, phases 3-4: {wall_one:.3f} s)" if wall_one else ""
+                print(f"[multi] {label}: rank {r} {what}: {res['wall']:.3f} s{one}; tokenized "
+                      f"{share}; phases (s) " + ", ".join(
+                          f"{n} {x:.3f}" for n, x in res["phases"].items())
+                      + f"; launches {launched}")
+        if totals.get("pt_fused_hist", 0) < MULTI_RANKS:
+            fail(f"{label}: pt_fused_hist was not launched on every rank")
+        print(f"[multi] {label}: rank 0 TSVs == the one-process TSVs; rank 1 wrote "
+              f"nothing; launches over both ranks {totals}")
+        if first_launches is None:
+            first_launches = totals
+    print(f"[multi] phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return first_launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "panacus_torch")):
         fail("panacus_torch not found: run from the root of a checkout")
@@ -1386,9 +1512,11 @@ def main() -> int:
     launches.update(probe_launches)
     report_launches = phase_report_path(dev)
     phase_sharded(single)
+    multi_launches = phase_multiprocess(single)
     del single
     for name, r in res.items():
         r["report_launches"] = report_launches[name]
+        r["multiprocess_launches"] = multi_launches.get(name, 0)
     for name, r in res.items():
         r["share_of_read"] = r.pop("_bytes") / (r["ms"] / 1e3) / read_bps
         print(f"[probe] {name}: {r['share_of_read']:.4f} of the measured read, "

@@ -115,6 +115,37 @@ def quantify_uncovered_bps(
     return res
 
 
+def group_multiplicities(
+    item_table: ItemTable,
+    exclude_table: Optional[ActiveTable],
+    path_order: List[Tuple[int, int]],
+    n_groups: int,
+    n_items: int,
+) -> List[Tuple[int, np.ndarray, np.ndarray]]:
+    """Per group with a visit to a countable: (group, its items ascending,
+    their multiplicities), excluded items and the sentinel dropped. One
+    group at a time (a dense bincount each), so the peak extra memory is
+    one group's visits plus the nonzeros."""
+    paths_by_group: List[List[int]] = [[] for _ in range(n_groups)]
+    for pid, gi in path_order:
+        paths_by_group[gi].append(pid)
+    excluded = np.flatnonzero(exclude_table.items) if exclude_table is not None else None
+    per_group: List[Tuple[int, np.ndarray, np.ndarray]] = []
+    for gi, pids in enumerate(paths_by_group):
+        slices = [s for s in map(item_table.path_slice, pids) if len(s)]
+        if not slices:
+            continue
+        visits = slices[0] if len(slices) == 1 else np.concatenate(slices)
+        cnt = np.bincount(visits, minlength=n_items + 1)
+        if excluded is not None and len(excluded):
+            cnt[excluded] = 0
+        cnt[0] = 0
+        nz = np.flatnonzero(cnt)
+        if len(nz):
+            per_group.append((gi, nz, cnt[nz].astype(np.int64)))
+    return per_group
+
+
 class AbacusByTotal:
     """Coverage histogram per count type (reference: abacus.rs:476-788)."""
 
@@ -309,40 +340,31 @@ class AbacusByGroup:
         """(items, group_ids, multiplicities) of the occurrence matrix, items
         ascending and groups in path order within an item: the CSC (r, c, v)
         equivalent for the table export (reference: compute_column_values
-        abacus.rs:901-986). One group at a time (a dense bincount each), so
-        the peak extra memory is one group's visits plus the nonzeros."""
+        abacus.rs:901-986). A multi-process build gathered them already
+        (parallel.ingest, `mh_triplets`); here no collective runs."""
         if self._sparse_cache is not None:
             return self._sparse_cache
-        n_groups = len(self.groups)
-        table = self._itemized.item_tables[self._slot]
-        ex = self._itemized.exclude_tables[self._slot]
+        gathered = getattr(self._itemized, "mh_triplets", None)
+        if gathered is not None:
+            self._sparse_cache = gathered[self._slot]
+            return self._sparse_cache
         n_items = self.engine.n_items
-        paths_by_group: List[List[int]] = [[] for _ in range(n_groups)]
-        for pid, gi in self._path_order:
-            paths_by_group[gi].append(pid)
-        excluded = np.flatnonzero(ex.items) if ex is not None else None
-        per_group: List[Tuple[int, np.ndarray, np.ndarray]] = []
-        row_counts = np.zeros(n_items + 2, dtype=np.int64)
-        for gi, pids in enumerate(paths_by_group):
-            slices = [s for s in map(table.path_slice, pids) if len(s)]
-            if not slices:
-                continue
-            visits = slices[0] if len(slices) == 1 else np.concatenate(slices)
-            cnt = np.bincount(visits, minlength=n_items + 1)
-            if excluded is not None and len(excluded):
-                cnt[excluded] = 0
-            cnt[0] = 0
-            nz = np.flatnonzero(cnt)
-            if not len(nz):
-                continue
-            per_group.append((gi, nz, cnt[nz].astype(np.int64)))
-            row_counts[nz + 1] += 1
+        per_group = group_multiplicities(
+            self._itemized.item_tables[self._slot],
+            self._itemized.exclude_tables[self._slot],
+            self._path_order,
+            len(self.groups),
+            n_items,
+        )
         if not per_group:
             z = np.zeros(0, dtype=np.int64)
             return z, z.copy(), z.copy()
         # counting placement instead of a global sort: each group's nonzero
         # list is item-sorted with unique items, so ptr[nz] places the
         # (item, group) runs row-major with groups in path order per item
+        row_counts = np.zeros(n_items + 2, dtype=np.int64)
+        for _, nz, _ in per_group:
+            row_counts[nz + 1] += 1
         ptr = np.cumsum(row_counts)[:-1]
         nnz = int(ptr[-1] + row_counts[-1])
         items = np.empty(nnz, dtype=np.int64)

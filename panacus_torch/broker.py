@@ -2,9 +2,10 @@
 
 Port of panacus_tpu/broker.py (reference: src/graph_broker.rs:31-433). It
 builds the total abaci (the streamed build for unmasked runs, the classic
-itemizer for masked ones) split over a tuple of torch devices, their
-histograms, and the group abacus of ordered growth, similarity and the
-coverage table, which shares the total abacus's engine.
+itemizer for masked ones; in a multi-process run the path-sliced build of
+parallel.ingest) split over a tuple of torch devices, their histograms,
+and the group abacus of ordered growth, similarity and the coverage
+table, which shares the total abacus's engine.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from .hist import Hist
 from .itemize import itemize_paths
 from .mask import GraphMask, GraphMaskParameters
 from .ops.engine import DeviceArg, as_devices
-from .runtime import phase_timer
+from .parallel.ingest import multihost_total_abaci
+from .runtime import phase_timer, world
 from .stream import streamed_total_abaci
 from .utils import CountType
 
@@ -199,9 +201,22 @@ class GraphBroker:
         count_types = self._count_types()
         log.info("calculating abaci for count_types: %s", count_types)
         with phase_timer("abaci_by_total"):
-            streamed = streamed_total_abaci(
-                self.graph_aux, self.mask, count_types, self.devices
-            )
+            streamed = None
+            if world()[1] > 1:
+                # multi-process: this process tokenizes only its group
+                # range and M assembles across processes; None when every
+                # process must itemize the whole graph (classic build below)
+                need_itemized = any(
+                    isinstance(r, tuple) and r[0] == "group_table"
+                    for r in self.input_requirements
+                )
+                streamed = multihost_total_abaci(
+                    self.graph_aux, self.mask, count_types, need_itemized, self.devices
+                )
+            if streamed is None:
+                streamed = streamed_total_abaci(
+                    self.graph_aux, self.mask, count_types, self.devices
+                )
             if streamed is not None:
                 abaci, itemized, path_order, groups = streamed
             else:

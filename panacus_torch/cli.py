@@ -7,19 +7,33 @@ same flags and runs the same ten subcommands: report, render, hist,
 growth (on a graph or a hist TSV), histgrowth, info, ordered-histgrowth,
 table, node-distribution and similarity. Counting runs on the devices that
 runtime.resolve_devices names (PANACUS_TORCH_DEVICE: every visible GPU,
-or the CPU), the membership matrices split over them. The multi-host
-branch of panacus_tpu's run_cli is not ported.
+or the CPU), the membership matrices split over them.
+
+Under torchrun (WORLD_SIZE > 1) every process runs the same command:
+run_cli joins the process group first (runtime.init_distributed), each
+process tokenizes its share of the paths (parallel.ingest), and only rank
+0 writes the output, as panacus_tpu's run_cli does under jax.distributed
+(cli.py:447-458):
+
+    torchrun --nproc-per-node 2 -m panacus_torch histgrowth -c all -H graph.gfa
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import logging
 import sys
 from typing import TYPE_CHECKING, List, Optional
 
 from .config import AnalysisParameter, AnalysisRun, Grouping
-from .runtime import resolve_devices, set_num_threads
+from .runtime import (
+    init_distributed,
+    resolve_devices,
+    set_num_threads,
+    shutdown_distributed,
+    world,
+)
 from .utils import CountType
 
 if TYPE_CHECKING:
@@ -451,6 +465,10 @@ def run_cli(argv: Optional[List[str]] = None, devices: Optional[DeviceArg] = Non
     )
     set_num_threads(args.threads)
     out = sys.stdout
+    # a multi-process run joins its process group before the first device
+    # touch; every rank runs every collective, rank 0 alone writes
+    if init_distributed() and world()[0] != 0:
+        out = io.StringIO()
 
     if args.command == "render":
         import json as json_mod
@@ -505,7 +523,7 @@ def run_cli(argv: Optional[List[str]] = None, devices: Optional[DeviceArg] = Non
         dry_run = args.dry_run
         json = args.json
         if args.yaml_file is None:
-            print(EXAMPLE_YAML)
+            out.write(EXAMPLE_YAML + "\n")
             return 0
         from .config import load_config_file
 
@@ -520,12 +538,12 @@ def run_cli(argv: Optional[List[str]] = None, devices: Optional[DeviceArg] = Non
         # pretty-prints the task vector with {:#?}, src/lib.rs:213-217; an
         # empty Vec prints as "[]" on one line)
         if not tasks:
-            print("[]")
+            out.write("[]\n")
             return 0
-        print("[")
+        out.write("[\n")
         for t in tasks:
-            print(f"    {t!r},")
-        print("]")
+            out.write(f"    {t!r},\n")
+        out.write("]\n")
         return 0
     if devices is None:
         devices = resolve_devices()
@@ -535,4 +553,8 @@ def run_cli(argv: Optional[List[str]] = None, devices: Optional[DeviceArg] = Non
 
 
 def main() -> None:
-    sys.exit(run_cli())
+    try:
+        rc = run_cli()
+    finally:
+        shutdown_distributed()
+    sys.exit(rc)

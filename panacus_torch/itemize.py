@@ -323,6 +323,32 @@ def itemize_paths(
     return ItemizeResult(item_tables, exclude_tables, subset_covered_bps, paths_len)
 
 
+# the covered-bp merge orders visits by path << 40 | visit index in int64
+MAX_TRACKED_PATHS = 1 << 23
+MAX_TRACKED_VISITS = 1 << 40
+
+
+def visit_position_base(num_path: int, n_visits: int) -> int:
+    """path << 40, the position of path `num_path`'s first visit in the
+    global visit order that the multi-process covered-bp merge reads
+    (parallel.ingest.merge_covered_container). The positions of every
+    visit fit in int64 only for path indices below 2^23 and fewer than
+    2^40 visits a path; past that this raises instead of letting the
+    positions wrap and scramble the merge."""
+    if not 0 <= num_path < MAX_TRACKED_PATHS:
+        raise ValueError(
+            f"path index {num_path} is past the {MAX_TRACKED_PATHS} paths whose "
+            "visit positions (path << 40 | visit) fit in int64: the "
+            "multi-process subset merge cannot order this graph's visits"
+        )
+    if n_visits >= MAX_TRACKED_VISITS:
+        raise ValueError(
+            f"path {num_path} has {n_visits} visits, past the "
+            f"{MAX_TRACKED_VISITS} that a visit position (path << 40 | visit) holds"
+        )
+    return num_path << 40
+
+
 def _update_tables(
     item_table: ItemTable,
     subset_covered_bps: Optional[IntervalContainer],
@@ -349,7 +375,7 @@ def _update_tables(
         if subset_covered_bps is not None
         else None
     )
-    pos_base = num_path << 40
+    pos_base = visit_position_base(num_path, len(ids)) if track is not None else 0
     if len(ids):
         from .native import interval_walk
 

@@ -44,7 +44,8 @@ Two times per call, in ms: `ev`, the median of single calls between CUDA
 events with the L2 cache flushed before each (chip_smoke.py phase 2's
 measure: the window holds the host's launch latency too); `slope`, the
 per-call slope between chains of K and 3K calls, each chain queued behind a
-device-side sleep so that it runs back to back, the calls rotating over
+device-side sleep that outlasts its queueing (doubled until it does) so
+that it runs back to back, the calls rotating over
 four copies of inputs smaller than 200 MB (each call finds its copy out of
 the 50 MB L2 cache). Needs a CUDA device.
 """
@@ -76,14 +77,14 @@ WORK = os.path.join(ROOT, "build", "kernel_times")
 GRAPH_DIR = os.path.join(ROOT, "build", "chip_smoke")
 K = 16
 REPS = 5
-SLEEP_CYCLES = 20_000_000  # about 10 ms of device clock: longer than queueing 3K calls
+SLEEP_CYCLES = 20_000_000  # about 10 ms of device clock: the first sleep a chain waits behind
 COPIES_BELOW = 200 << 20  # inputs smaller than this rotate over four copies
 ORDERED_QC = ((0.0, 1), (0.5, 1), (1.0, 2))  # ordered-histgrowth -q 0,0.5,1 -l 1,1,2
 ORDERED_ARGV = ["ordered-histgrowth", "-H", "-q", "0,0.5,1", "-l", "1,1,2"]
 KERNELS = ("pt_fused_hist", "pt_coverage", "pt_ordered_growth", "pt_similarity",
            "pt_limb_hist")
 SOURCE_OF = {name: src for name, (src, _) in kernels._SIGNATURES.items()}
-CHAIN_TRIES = 3  # a chain whose queueing a host stall outlasted runs again
+CHAIN_TRIES = 4  # a chain queued past the end of its sleep runs again, behind twice the sleep
 HISTGROWTH_ARGV = ["histgrowth", "-c", "all", "-H", "-q", "0,0.5,1.0", "-l", "0,1,2"]
 
 
@@ -190,30 +191,18 @@ def event_ms(fn: Callable[[], object], reps: int, flush: torch.Tensor) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in times)
 
 
-_sleep_ms: Optional[float] = None
-
-
-def _sleep() -> float:
-    """Queue the device-side sleep; returns its length in ms (measured once)."""
-    global _sleep_ms
-    if _sleep_ms is None:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        end.record()
-        end.synchronize()
-        _sleep_ms = start.elapsed_time(end)
-    torch.cuda._sleep(SLEEP_CYCLES)
-    return _sleep_ms
+_sleep_cycles = SLEEP_CYCLES  # doubled for good when a chain outlasts it
 
 
 def _chain_ms(fns: Sequence[Callable[[], object]], n: int) -> float:
-    """ms of a chain of n calls queued behind the sleep; a chain whose
-    queueing outlasted the sleep (a stall of the host) is run again, up to
-    CHAIN_TRIES times."""
+    """ms of a chain of n calls queued behind a device-side sleep. The chain
+    ran back to back only if the sleep was still running when its last call
+    was queued (the event after the sleep had not completed); if not, the
+    sleep doubles (for every later chain too) and the chain runs again, up
+    to CHAIN_TRIES times."""
+    global _sleep_cycles
     for _ in range(CHAIN_TRIES):
-        sleep_ms = _sleep()
+        torch.cuda._sleep(_sleep_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -221,13 +210,16 @@ def _chain_ms(fns: Sequence[Callable[[], object]], n: int) -> float:
         for i in range(n):
             fns[i % len(fns)]()
         queued_ms = (time.perf_counter() - t0) * 1e3
+        asleep = not start.query()
         end.record()
         end.synchronize()
-        if queued_ms < sleep_ms:
+        if asleep:
             return start.elapsed_time(end)
+        _sleep_cycles *= 2
     raise RuntimeError(
-        f"queueing {n} calls took {queued_ms:.2f} ms, past the {sleep_ms:.2f} ms "
-        f"sleep, {CHAIN_TRIES} times: the chain did not run back to back"
+        f"queueing {n} calls took {queued_ms:.2f} ms, past the end of a device-side "
+        f"sleep of {_sleep_cycles // 2} cycles, {CHAIN_TRIES} times (the sleep doubling "
+        f"each time): the chain did not run back to back"
     )
 
 

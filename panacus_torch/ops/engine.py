@@ -19,22 +19,33 @@ An engine lives on a tuple of devices, one item shard each
 (runtime.resolve_devices gives every visible GPU; a tuple may name one
 device several times). n_items_pad is a multiple of ITEM_ALIGN * k, and
 shard s holds the columns [s * n_items_pad / k, (s + 1) * n_items_pad / k)
-as its own contiguous tensor on devices[s]. Every op is elementwise over items or a
-reduction over them, so each shard runs the kernel on its own columns
-(every shard's launch is issued before the first copy back to the host)
-and the host adds the partials in int64: n_bins, n_groups or n_groups^2
-values a shard, as panacus_tpu's shard_map dispatch does (engine.py:
-398-540). No shard's M leaves its device and nothing is communicated
-between devices. Results are exact int64 for any weight total.
+as its own contiguous tensor on devices[s]. Every op is elementwise over
+items or a reduction over them, so each shard runs the kernel on its own
+columns (every shard's launch is issued before the first copy back to the
+host) and the host adds the partials in int64: n_bins, n_groups or
+n_groups^2 values a shard, as panacus_tpu's shard_map dispatch does
+(engine.py:398-540). No shard's M leaves its device. Results are exact
+int64 for any weight total.
+
+In a multi-process run (runtime.init_distributed) the item axis is split
+over every device of every process: process p of P owns the columns
+[p * n_items_pad / P, (p + 1) * n_items_pad / P) and splits them over its
+k devices as above; n_items_pad is then a multiple of ITEM_ALIGN * P *
+the lcm of the processes' k, and `bounds` are global item ranges. The
+processes' int64 partials are summed by an all_reduce, and `coverage`
+all_gathers the processes' item blocks in rank order (panacus_tpu's
+fetch_parts, engine.py:398-407). One process is the case p = 0, P = 1.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..runtime import all_gather_cat, all_reduce_sum, comm_device, host_all_gather, world
 from . import group_kernels, hist_kernels
 
 ITEM_ALIGN = 1 << 14
@@ -65,8 +76,9 @@ def as_devices(devices: DeviceArg) -> Devices:
 
 
 def _host_sum(parts: List[torch.Tensor]) -> torch.Tensor:
-    """The shards' int64 partials copied to the host and added."""
-    return torch.stack([p.cpu() for p in parts]).sum(0)
+    """The shards' int64 partials copied to the host and added, then summed
+    over the processes of a multi-process run."""
+    return all_reduce_sum(torch.stack([p.cpu() for p in parts]).sum(0))
 
 
 def dedup_pairs(
@@ -116,10 +128,22 @@ class CountingEngine:
         self.n_words = max((n_groups + 31) // 32, 1)
         self.devices = as_devices(devices)
         k = len(self.devices)
-        self.n_items_pad = _round_up(n_items + 1, ITEM_ALIGN * k)
-        self.shard_items = self.n_items_pad // k
-        # [lo, hi) columns of each shard
-        self.bounds = [(s * self.shard_items, (s + 1) * self.shard_items) for s in range(k)]
+        rank, self.world_size = world()
+        ks = [k]
+        if self.world_size > 1:  # every process's shard count
+            ks = [int(x) for x in host_all_gather(torch.tensor([k]))]
+        self.n_items_pad = _round_up(
+            n_items + 1, ITEM_ALIGN * self.world_size * math.lcm(*ks)
+        )
+        # this process's global columns [item_lo, item_lo + proc_items)
+        self.proc_items = self.n_items_pad // self.world_size
+        self.item_lo = rank * self.proc_items
+        self.shard_items = self.proc_items // k
+        # [lo, hi) global columns of each local shard
+        self.bounds = [
+            (self.item_lo + s * self.shard_items, self.item_lo + (s + 1) * self.shard_items)
+            for s in range(k)
+        ]
         self.shards: List[torch.Tensor] = []
         self._ones: Optional[List[torch.Tensor]] = None
 
@@ -153,8 +177,9 @@ class CountingEngine:
     ) -> "CountingEngine":
         """M from occurrence pairs, in any order: item items[j] in [0,
         n_items] occurs in group groups[j] in [0, n_groups). Each shard
-        takes the pairs of its items and builds its columns on its device.
-        dedup=False promises that the pairs are distinct. Excluded items
+        takes the pairs of its items and builds its columns on its device
+        (in a multi-process run, the pairs of other processes' items are
+        dropped). dedup=False promises that the pairs are distinct. Excluded items
         must be filtered by the caller."""
         items = np.asarray(items, dtype=np.int64)
         groups = np.asarray(groups, dtype=np.int64)
@@ -170,10 +195,15 @@ class CountingEngine:
                 f"pairs must lie in items [0, {self.n_items}] and groups "
                 f"[0, {self.n_groups})"
             )
+        if self.world_size > 1:
+            mine = (items >= self.item_lo) & (items < self.item_lo + self.proc_items)
+            items, groups = items[mine], groups[mine]
         k = len(self.devices)
         cuts = [0, items.size]
         if k > 1:  # one pass: the pairs sorted by shard (a radix sort of small keys)
-            sid = (items // self.shard_items).astype(np.min_scalar_type(k - 1))
+            sid = ((items - self.item_lo) // self.shard_items).astype(
+                np.min_scalar_type(k - 1)
+            )
             order = np.argsort(sid, kind="stable")
             items, groups = items[order], groups[order]
             cuts = np.concatenate([[0], np.cumsum(np.bincount(sid, minlength=k))])
@@ -190,8 +220,9 @@ class CountingEngine:
         return self
 
     def build_from_host_matrix(self, M_host: np.ndarray) -> "CountingEngine":
-        """Adopt a host-assembled uint32 [n_words, n_items_pad] matrix: one
-        upload of each shard's columns (zero-copy for one CPU shard)."""
+        """Adopt a host-assembled uint32 [n_words, n_items_pad] matrix (the
+        whole M, in every process of a multi-process run): one upload of
+        each local shard's columns (zero-copy for one CPU shard)."""
         if M_host.shape != (self.n_words, self.n_items_pad):
             raise ValueError(
                 f"M has shape {M_host.shape}, expected "
@@ -207,8 +238,9 @@ class CountingEngine:
 
     def coverage(self) -> np.ndarray:
         """Per-item distinct-group count, length n_items + 1 (slot 0 sentinel)."""
+        # this process's block where the collective takes it, then all blocks
         covs = [hist_kernels.coverage(m) for m in self.shards]
-        cov = np.concatenate([c.cpu().numpy() for c in covs])
+        cov = all_gather_cat(torch.cat([c.to(comm_device()) for c in covs])).numpy()
         return cov[: self.n_items + 1]
 
     def _ones_w(self) -> List[torch.Tensor]:

@@ -1,9 +1,16 @@
-"""Runtime settings of the port: host threads and memory, the torch devices,
-phase timing.
+"""Runtime settings of the port: host threads and memory, the torch devices
+of this process, the process group of a multi-process run, phase timing.
 
 The host half (set_num_threads, effective_threads, configure_host_memory)
-is panacus_tpu/runtime.py's; torch is imported only where the devices are
-resolved, so the host layers that read the thread count do not load it.
+is panacus_tpu/runtime.py's; torch is imported only where the devices or
+the process group are resolved, so the host layers that read the thread
+count do not load it.
+
+A multi-process run is launched as torchrun launches it: every process
+gets RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR and
+MASTER_PORT. `init_distributed` joins the process group (the counterpart
+of panacus_tpu/parallel/ingest.py:init_distributed on jax.distributed);
+the collectives below are the engine's and the ingest's.
 """
 
 from __future__ import annotations
@@ -11,10 +18,13 @@ from __future__ import annotations
 import logging
 import os
 import time
+from datetime import timedelta
 
 log = logging.getLogger("panacus")
 
 DEVICE_ENV = "PANACUS_TORCH_DEVICE"
+# a rank that dies leaves the others in a collective: they fail after this
+DIST_TIMEOUT = timedelta(minutes=10)
 
 _NUM_THREADS = 0  # 0 = all cores
 
@@ -81,12 +91,24 @@ def configure_host_memory() -> None:
         log.debug("hugepage allocator unavailable: %s", e)
 
 
+def _local_rank():
+    """(LOCAL_RANK, LOCAL_WORLD_SIZE) as torchrun sets them; (0, 1) outside
+    a multi-process run."""
+    return (
+        int(os.environ.get("LOCAL_RANK", "0")),
+        int(os.environ.get("LOCAL_WORLD_SIZE", "1")),
+    )
+
+
 def resolve_devices():
-    """The torch devices the membership matrices are split over, one item
-    shard each: every visible GPU under PANACUS_TORCH_DEVICE=cuda (the
-    default; CUDA_VISIBLE_DEVICES picks which), as indexed devices, or the
-    CPU alone under PANACUS_TORCH_DEVICE=cpu. The default never falls back
-    to the CPU: without a CUDA device it raises."""
+    """The torch devices this process splits its membership matrices over,
+    one item shard each: under PANACUS_TORCH_DEVICE=cuda (the default;
+    CUDA_VISIBLE_DEVICES picks the cards) this local rank's contiguous
+    share of the visible GPUs (all of them in a one-process run), as
+    indexed devices; with fewer GPUs than local ranks, local rank r takes
+    cuda:(r % n) and the ranks share cards. Under PANACUS_TORCH_DEVICE=cpu
+    every rank takes the CPU alone. The default never falls back to the
+    CPU: without a CUDA device it raises."""
     import torch
 
     want = os.environ.get(DEVICE_ENV, "cuda")
@@ -99,7 +121,141 @@ def resolve_devices():
             f"no CUDA device is available; set {DEVICE_ENV}=cpu to count on "
             "the CPU"
         )
-    return tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+    n = torch.cuda.device_count()
+    r, n_local = _local_rank()
+    if n_local > n:
+        return (torch.device("cuda", r % n),)
+    return tuple(
+        torch.device("cuda", i) for i in range(r * n // n_local, (r + 1) * n // n_local)
+    )
+
+
+# -- the process group of a multi-process run ----------------------------------
+#
+# Device collectives (M's exchange, the int64 partials, the coverage blocks)
+# run on the backend the layout allows: NCCL when every rank has cards of its
+# own, gloo otherwise (the CPU, or ranks that share a card: NCCL cannot hold
+# two ranks of one communicator on one GPU). Host payloads (counts, bitmaps,
+# triplets, path lengths) go over a gloo group in every layout.
+
+_HOST_GROUP = None  # the gloo group of host payloads, set by init_distributed
+
+
+def init_distributed() -> bool:
+    """Join the process group when torchrun's environment names more than
+    one process (WORLD_SIZE > 1); returns whether this is a multi-process
+    run. Call it before the first device touch. Idempotent."""
+    global _HOST_GROUP
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return False
+    import torch
+    import torch.distributed as tdist
+
+    if tdist.is_initialized():
+        return True
+    devices = resolve_devices()
+    n_local = _local_rank()[1]
+    shared = devices[0].type == "cuda" and n_local > torch.cuda.device_count()
+    backend = "nccl" if devices[0].type == "cuda" and not shared else "gloo"
+    if backend == "nccl":
+        torch.cuda.set_device(devices[0])
+    # env:// reads RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT; a failure
+    # to bring NCCL up raises (no retry on another backend)
+    tdist.init_process_group(backend, init_method="env://", timeout=DIST_TIMEOUT)
+    _HOST_GROUP = (
+        tdist.new_group(backend="gloo", timeout=DIST_TIMEOUT)
+        if backend == "nccl"
+        else tdist.group.WORLD
+    )
+    log.info(
+        "process group: rank %d of %d, device collectives on %s%s, host "
+        "payloads on gloo; devices %s",
+        tdist.get_rank(),
+        tdist.get_world_size(),
+        backend,
+        " (ranks share a card)" if shared else "",
+        ", ".join(map(str, devices)),
+    )
+    return True
+
+
+def shutdown_distributed() -> None:
+    """Leave the process group, if this process joined one."""
+    global _HOST_GROUP
+    import torch.distributed as tdist
+
+    if tdist.is_available() and tdist.is_initialized():
+        tdist.destroy_process_group()
+    _HOST_GROUP = None
+
+
+def world():
+    """(rank, world size) of this process: (0, 1) outside a multi-process run."""
+    import torch.distributed as tdist
+
+    if tdist.is_available() and tdist.is_initialized():
+        return tdist.get_rank(), tdist.get_world_size()
+    return 0, 1
+
+
+def device_backend() -> str:
+    """The backend of the device collectives: "nccl", "gloo", or "" outside
+    a multi-process run."""
+    import torch.distributed as tdist
+
+    if tdist.is_available() and tdist.is_initialized():
+        return tdist.get_backend()
+    return ""
+
+
+def comm_device():
+    """Where the device collectives take their tensors: this rank's card
+    under NCCL, the host under gloo."""
+    import torch
+
+    if device_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def all_reduce_sum(t):
+    """The elementwise sum of `t` over every rank (t itself in one process),
+    on the host."""
+    import torch.distributed as tdist
+
+    if world()[1] == 1:
+        return t.cpu()
+    t = t.to(comm_device())
+    tdist.all_reduce(t)
+    return t.cpu()
+
+
+def all_gather_cat(t):
+    """Every rank's `t` (equal shapes) concatenated along dim 0 in rank
+    order, on the host."""
+    import torch
+    import torch.distributed as tdist
+
+    size = world()[1]
+    if size == 1:
+        return t.cpu()
+    t = t.to(comm_device()).contiguous()
+    parts = [torch.empty_like(t) for _ in range(size)]
+    tdist.all_gather(parts, t)
+    return torch.cat(parts).cpu()
+
+
+def host_all_gather(t):
+    """Every rank's host tensor `t` (equal shapes), a list in rank order,
+    over the gloo group."""
+    import torch
+    import torch.distributed as tdist
+
+    if world()[1] == 1:
+        return [t]
+    parts = [torch.empty_like(t) for _ in range(world()[1])]
+    tdist.all_gather(parts, t.contiguous(), group=_HOST_GROUP)
+    return parts
 
 
 class phase_timer:

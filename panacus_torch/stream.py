@@ -41,7 +41,7 @@ from .native import (
     pack_edges_adj,
 )
 from .ops.engine import Devices, MembershipStream
-from .runtime import effective_threads
+from .runtime import effective_threads, world
 from .utils import CountType
 
 log = logging.getLogger("panacus")
@@ -207,7 +207,10 @@ def streamed_total_abaci(
 ):
     """Unmasked abacus build. Returns (abaci, itemized, path_order, groups),
     or None when the classic path must run (masks present / native
-    tokenizer unavailable / no paths)."""
+    tokenizer unavailable / no paths) or in a multi-process run, which
+    builds through parallel.ingest.multihost_total_abaci."""
+    if world()[1] > 1:
+        return None
     if mask.include_coords is not None or mask.exclude_coords is not None:
         return None
     if not graph.batch_tokenizable():

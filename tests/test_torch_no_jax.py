@@ -8,8 +8,13 @@
   and CountingEngine.build from pairs, and must finish with no
   `jax` and no `panacus_tpu` module loaded; `python -m panacus_torch.probe` run under
   `-X importtime` imports neither.
-- An AST scan of every module of panacus_torch and of chip_smoke.py finds
-  no import of panacus_tpu, jax, bench or __graft_entry__.
+- `torchrun --nproc-per-node 2 -m panacus_torch hist` (two processes of a
+  gloo group on the CPU, as the README runs the port on several
+  processes): rank 0 prints the one-process TSV, and the import log of
+  both ranks names no module of JAX or of the JAX package.
+- An AST scan of every module of panacus_torch (panacus_torch/parallel/
+  included) and of chip_smoke.py finds no import of panacus_tpu, jax,
+  bench or __graft_entry__.
 - The port's copies of the graph generators and oracles
   (panacus_torch.testgraphs) equal the JAX package's: the same GFA bytes
   from make_graph and _write_dryrun_gfa, the same oracle arrays.
@@ -130,6 +135,46 @@ def test_probe_entry_point_imports_no_jax():
     assert "\n  pc: " in res.stdout and "\n  fh21: " in res.stdout
 
 
+def test_torchrun_cli_imports_no_jax(tmp_path):
+    import contextlib
+    import io
+
+    from panacus_torch import testgraphs
+    from panacus_torch.cli import run_cli
+
+    gfa = str(tmp_path / "dryrun.gfa")
+    testgraphs._write_dryrun_gfa(gfa)
+    argv = ["hist", "-c", "all", "-S", gfa]
+    env = dict(os.environ, PANACUS_TORCH_DEVICE="cpu", PYTHONPROFILEIMPORTTIME="1")
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "panacus_torch", *argv],
+        cwd=ROOT,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=300,
+    )
+    assert res.returncode == 0, res.stderr[-4000:]
+    imported = [
+        l.rsplit("|", 1)[1].strip()
+        for l in res.stderr.splitlines()
+        if l.startswith("import time:") and "|" in l
+    ]
+    assert "panacus_torch.parallel.ingest" in imported
+    bad = [m for m in imported if m.split(".")[0] in ("jax", "panacus_tpu")]
+    assert not bad, bad
+    assert "process group: rank 1 of 2, device collectives on gloo" in res.stderr
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert run_cli(argv, devices=("cpu",)) == 0
+
+    def body(out):
+        return [l for l in out.splitlines() if "\t" in l and not l.startswith("#")]
+
+    assert body(res.stdout) == body(buf.getvalue()) and len(body(res.stdout)) > 5
+
+
 def _port_sources():
     files = sorted(glob.glob(os.path.join(ROOT, "panacus_torch", "**", "*.py"), recursive=True))
     return files + [os.path.join(ROOT, "chip_smoke.py")]
@@ -149,6 +194,9 @@ def _imported_modules(path: str):
 def test_port_sources_import_nothing_of_the_jax_package():
     files = _port_sources()
     assert len(files) > 20  # the scan sees the whole package
+    assert {"ingest.py", "launch.py"} <= {
+        os.path.basename(f) for f in files if os.sep + "parallel" + os.sep in f
+    }
     bad = [
         f"{os.path.relpath(path, ROOT)}:{line}: {mod}"
         for path in files
