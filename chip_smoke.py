@@ -113,13 +113,27 @@ Phases, one or more lines each on stdout:
    the payload share it tokenized, the walls, the phases and the
    launches. A rank that fails or hangs fails the phase.
 
+9. front end: `histgrowth -H` at bench.py's four stages, `-c all`, `-c
+   node`, `-c edge` and `-c node` on a single-member level-1 gzip of the
+   graph (testgraphs.write_gzip), on cuda:0, FRONT_RUNS warm runs of each
+   taken in turns: on the graph of phase 3 (90 groups, 3 slabs; `-q
+   0,0.5,1.0 -l 0,1,2`) and on make_graph(n_nodes=80_000, n_paths=1024)
+   (1024 groups, 32 slabs; `-q 0,1.0 -l 0,2`, see FRONT_QL). Each TSV
+   must equal the port's CPU run of the same command, and each run must
+   launch pt_fused_hist (counted from 0 for each run) through the
+   streamed build. It prints the median walls, MB/s on the uncompressed
+   bytes, the phases index and abaci_by_total, the launches and the gz
+   inflate route (libdeflate or zlib); then one warm `-c all` under
+   torch.profiler: the phase scopes it finds, the device's busy time and
+   longest idle gap in each, and the slab scopes of the streamed build.
+
 Phases 3, 4 and 6 run on the first card alone (one shard), whatever the
 number of cards, so their launch counts and times compare across machines.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches are those of the path it belongs to, `report_launches` those
-of phase 6 and `multiprocess_launches` those of phase 8's first layout,
-summed over its ranks; its times at the largest shape that path hands it, by events
+of phase 6, `multiprocess_launches` those of phase 8's first layout,
+summed over its ranks, and `front_end_launches` those of phase 9; its times at the largest shape that path hands it, by events
 as `ms` and, where taken, by slope as `slope_ms`; under `path`, phase
 4b's times); the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero without that
@@ -1488,6 +1502,233 @@ def phase_multiprocess(single):
     return first_launches
 
 
+# phase 9: the front end of the main path, at bench.py's four stages
+
+# the many-slab graph: 1024 paths, which -H makes 1024 groups in 32 slabs
+# (assembly graphs grouped by path), about the main graph's bytes
+MANY_SLABS = (80_000, 1024)
+# growth thresholds of each graph's commands. The many-slab graph leaves
+# out the (quorum 0.5, coverage 1) pair: at 1024 groups its growth
+# recurrence takes seconds a count type on the host (ROADMAP item 6) and
+# would drown the front end that this phase measures.
+FRONT_QL = {
+    "main": ["-q", "0,0.5,1.0", "-l", "0,1,2"],
+    "many-slab": ["-q", "0,1.0", "-l", "0,2"],
+}
+FRONT_RUNS = 5  # warm runs of each command, taken in turns
+SCOPES = ("index", "abaci_by_total", "hists", "growth")
+
+
+class FrontLog(logging.Handler):
+    """The front end's log lines: the gz route, each streamed build, and
+    every warning."""
+
+    PREFIXES = ("gz ingest:", "streamed membership build:")
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+        self.warnings = []
+
+    def emit(self, record):
+        if str(record.msg).startswith(self.PREFIXES):
+            self.lines.append(record.getMessage())
+        if record.levelno >= logging.WARNING:
+            self.warnings.append(record.getMessage())
+
+
+def drive_logged(argv):
+    """drive(argv, "cuda") with every kernel's launches counted from 0:
+    (stdout, phases, wall, launches of every kernel, FrontLog)."""
+    from panacus_torch.ops import kernels
+
+    handler = FrontLog()
+    logging.getLogger("panacus").addHandler(handler)
+    kernels.reset_launches()
+    try:
+        out, phases, wall = drive(argv, "cuda")
+    finally:
+        logging.getLogger("panacus").removeHandler(handler)
+    return out, phases, wall, dict(kernels.launches), handler
+
+
+def union(intervals):
+    """Merged, sorted (start, end) intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def busy_in(busy, a, b):
+    """(device-busy us inside [a, b], longest idle gap us inside it)."""
+    t, gap, cur = 0.0, 0.0, a
+    for x, y in busy:
+        if y <= a or x >= b:
+            continue
+        x, y = max(x, a), min(y, b)
+        gap = max(gap, x - cur)
+        t += y - x
+        cur = y
+    return t, max(gap, b - cur)
+
+
+def trace_scopes(trace_path: str):
+    """From a chrome trace of one CLI run: each phase scope (runtime's
+    phase_timer) with its wall, the device's busy time inside it and its
+    longest idle gap (us); the slab scopes of the streamed build ("tokenize
+    slab i", "pack slab i"): their number and summed wall (us); the
+    device's busy time in all."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    busy = union(
+        (e["ts"], e["ts"] + e["dur"])
+        for e in events
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+    )
+    notes = [e for e in events if e.get("cat") == "user_annotation"]
+    phases = {}
+    for e in notes:
+        if e["name"] in SCOPES:
+            t, gap = busy_in(busy, e["ts"], e["ts"] + e["dur"])
+            w, b, g = phases.get(e["name"], (0.0, 0.0, 0.0))
+            phases[e["name"]] = (w + e["dur"], b + t, max(g, gap))
+    slabs = {}
+    for e in notes:
+        kind, _, i = e["name"].rpartition(" slab ")
+        if kind in ("tokenize", "pack") and i.isdigit():
+            slabs[(kind, int(i))] = (e["ts"], e["ts"] + e["dur"])
+    kinds = ("tokenize", "pack")
+    return {
+        "phases": phases,
+        "n_slab_scopes": {k: sum(1 for (kk, _) in slabs if kk == k) for k in kinds},
+        "slab_us": {k: sum(b - a for (kk, _), (a, b) in slabs.items() if kk == k) for k in kinds},
+        "busy_us": sum(b - a for a, b in busy),
+    }
+
+
+def print_scopes(tag: str, scopes, wall: float) -> None:
+    for name in SCOPES:
+        if name in scopes["phases"]:
+            w, b, g = scopes["phases"][name]
+            print(
+                f"[{tag}]   scope {name}: {w / 1e3:.4f} ms, device busy "
+                f"{b / 1e3:.4f} ms ({100 * b / max(w, 1e-9):.3f}%), longest idle gap "
+                f"{g / 1e3:.4f} ms"
+            )
+    print(
+        f"[{tag}]   slab scopes {scopes['n_slab_scopes']}, summed "
+        + ", ".join(f"{k} {v / 1e3:.4f} ms" for k, v in scopes["slab_us"].items())
+    )
+    print(
+        f"[{tag}]   device busy {scopes['busy_us'] / 1e3:.4f} ms of a {wall:.4f} s run: "
+        f"{100 * scopes['busy_us'] / 1e6 / wall:.4f}% busy"
+    )
+
+
+def phase_front_end():
+    """histgrowth at bench.py's stages all / node / edge / gz_node (the
+    node count of a single-member level-1 gzip of the graph) on cuda:0, on
+    the main graph (90 groups, 3 slabs) and on a many-slab graph (1024
+    groups, 32 slabs). Every TSV must equal the port's CPU run of the same
+    command and every run must launch pt_fused_hist through the streamed
+    build. Then one warm `-c all` under torch.profiler. Returns the
+    launches of each kernel in the phase."""
+    from panacus_torch import testgraphs as tg
+    from panacus_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    graphs = {"main": bench_graph()}
+    t0 = time.perf_counter()
+    graphs["many-slab"] = tg.cached_graph(WORK, *MANY_SLABS)
+    if time.perf_counter() - t0 > 1:
+        print(f"[front] generated {graphs['many-slab']} in {time.perf_counter() - t0:.1f} s")
+    total = {name: 0 for name in kernels.launches}
+    for label, gfa in graphs.items():
+        gz = gfa + ".gz"
+        if not os.path.exists(gz):
+            t0 = time.perf_counter()
+            tg.write_gzip(gfa, gz)
+            print(
+                f"[front] {label}: wrote one level-1 gzip member, "
+                f"{os.path.getsize(gz) / 1e6:.1f} MB, in {time.perf_counter() - t0:.1f} s"
+            )
+        mb = os.path.getsize(gfa) / 1e6
+        n_groups = MANY_SLABS[1] if label == "many-slab" else tg.N_PATHS
+        base = ["histgrowth", "-H"] + FRONT_QL[label]
+        cmds = {
+            "all": base + ["-c", "all", gfa],
+            "node": base + ["-c", "node", gfa],
+            "edge": base + ["-c", "edge", gfa],
+            "gz_node": base + ["-c", "node", gz],
+        }
+        refs = {}
+        for name, argv in cmds.items():
+            body, rows = table(drive(argv, "cpu")[0])
+            if len(rows) != 4 + n_groups + 1:
+                fail(f"{label} {name}: CPU TSV has {len(rows)} rows, not {4 + n_groups + 1}")
+            refs[name] = body
+        runs = {}
+        for _ in range(FRONT_RUNS):
+            for name, argv in cmds.items():
+                out, phases, wall, launches, log_ = drive_logged(argv)
+                what = f"{label} histgrowth {name}"
+                if table(out)[0] != refs[name]:
+                    fail(f"{what}: TSV on cuda differs from the port's run on cpu")
+                if launches["pt_fused_hist"] < 1:
+                    fail(f"{what} did not launch pt_fused_hist")
+                if not any(l.startswith("streamed membership build:") for l in log_.lines):
+                    fail(f"{what} did not take the streamed build")
+                if log_.warnings:
+                    fail(f"{what} logged warnings: {log_.warnings}")
+                for k, v in launches.items():
+                    total[k] += v
+                runs.setdefault(name, []).append((wall, phases, launches, log_))
+        print(
+            f"[front] {label} graph: {mb:.1f} MB of GFA, {n_groups} groups "
+            f"({-(-n_groups // 32)} slabs), {' '.join(base[2:])}; every TSV == cpu"
+        )
+        for name, rs in runs.items():
+            walls = [w for w, _, _, _ in rs]
+            med = statistics.median(walls)
+            idx = statistics.median(p.get("index", 0.0) for _, p, _, _ in rs)
+            build = statistics.median(p.get("abaci_by_total", 0.0) for _, p, _, _ in rs)
+            print(
+                f"[front]   {name:7s}: median wall {med:.4f} s "
+                f"({mb / med:.1f} MB/s), index {idx:.4f} s, abaci_by_total {build:.4f} s, "
+                f"pt_fused_hist {rs[0][2]['pt_fused_hist']} a run; walls "
+                + " ".join(f"{w:.4f}" for w in walls)
+            )
+        route = [l for l in runs["gz_node"][0][3].lines if l.startswith("gz ingest:")]
+        print(f"[front]   gz route: {route}")
+
+    # one warm -c all under the profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    argv = ["histgrowth", "-H"] + FRONT_QL["main"] + ["-c", "all", graphs["main"]]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out, phases, wall, launches, log_ = drive_logged(argv)
+    trace = os.path.join(WORK, "front_end_trace.json")
+    prof.export_chrome_trace(trace)
+    for k, v in launches.items():
+        total[k] += v
+    scopes = trace_scopes(trace)
+    missing = [n for n in SCOPES if n not in scopes["phases"]]
+    print(
+        f"[front] traced main histgrowth -c all: wall {wall:.4f} s; phase scopes found "
+        f"{sorted(scopes['phases'])}, missing {missing}"
+    )
+    print_scopes("front", scopes, wall)
+    if missing or scopes["n_slab_scopes"].get("tokenize", 0) < 3:
+        fail(f"the trace lacks phase or slab scopes: {scopes['phases'].keys()}, {scopes['n_slab_scopes']}")
+    print(f"[front] launches in phase 9: {total}")
+    print(f"[front] phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "panacus_torch")):
         fail("panacus_torch not found: run from the root of a checkout")
@@ -1514,9 +1755,11 @@ def main() -> int:
     phase_sharded(single)
     multi_launches = phase_multiprocess(single)
     del single
+    front_launches = phase_front_end()
     for name, r in res.items():
         r["report_launches"] = report_launches[name]
         r["multiprocess_launches"] = multi_launches.get(name, 0)
+        r["front_end_launches"] = front_launches[name]
     for name, r in res.items():
         r["share_of_read"] = r.pop("_bytes") / (r["ms"] / 1e3) / read_bps
         print(f"[probe] {name}: {r['share_of_read']:.4f} of the measured read, "

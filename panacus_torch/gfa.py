@@ -138,15 +138,20 @@ def _read_gz_streamed(gfa_file: str) -> bytearray:
     otherwise)."""
     cap = _gz_capacity_hint(gfa_file)
 
-    from .native import gzip_decompress_buffer
+    from .native import _get_libdeflate, gzip_decompress_buffer
 
     try:
         raw_map = np.memmap(gfa_file, dtype=np.uint8, mode="r")
         out = gzip_decompress_buffer(raw_map, cap)
         if out is not None:
+            log.info("gz ingest: inflate by libdeflate")
             return out
     except (OSError, ValueError):
         pass
+    log.info(
+        "gz ingest: inflate by zlib (%s)",
+        "no libdeflate" if _get_libdeflate() is None else "libdeflate refused the file",
+    )
 
     buf = bytearray(cap)
     pos = 0
@@ -327,22 +332,11 @@ class GraphStorage:
     def __init__(self, gfa_file: str, index_edges: bool, nice: bool = False):
         self.gfa_file = gfa_file
         self.is_nice = nice
-        follow = None
-        if gfa_file.endswith(".gz"):
-            # overlapped ingest: structural indexing + path tokenization
-            # chase the libdeflate frontier on a second core (gz_pipeline)
-            from .gz_pipeline import read_gz_overlapped
-
-            log.info("loading graph from %s", gfa_file)
-            log.info("assuming that %s is gzip compressed..", gfa_file)
-            data, follow = read_gz_overlapped(gfa_file)
-        else:
-            data = _read_all(gfa_file)
+        data = _read_all(gfa_file)
         if isinstance(data, (bytes, bytearray)) and data and not data.endswith(
             b"\n"
         ):
             data += b"\n"
-            follow = None  # line coverage changed; reindex from scratch
         self._data = data
         buf = np.frombuffer(data, dtype=np.uint8)
         self._buf = buf
@@ -359,36 +353,30 @@ class GraphStorage:
         # per-line numpy parsing dwarfs one extra threaded scan. With no
         # native lib at all, scan_lines returns None and the flatnonzero
         # fallback below fills both arrays in this one pass.)
-        if follow is not None and follow.lines_ok:
-            # the gz follower already scanned/classified every line while
-            # the buffer was being inflated
-            starts, ends, first = follow.starts, follow.ends, follow.first
-            tabs = None
+        scanned = scan_lines(buf, effective_threads(), want_tabs=False)
+        if scanned is not None:
+            nl, tabs = scanned
         else:
-            scanned = scan_lines(buf, effective_threads(), want_tabs=False)
-            if scanned is not None:
-                nl, tabs = scanned
-            else:
-                nl = np.flatnonzero(buf == 10)
-                tabs = np.flatnonzero(buf == 9)
-            from .native import classify_lines
+            nl = np.flatnonzero(buf == 10)
+            tabs = np.flatnonzero(buf == 9)
+        from .native import classify_lines
 
-            cls = classify_lines(buf, nl) if scanned is not None else None
-            if cls is not None:
-                # one C pass (~6 ops/line) instead of four full-width
-                # numpy temporaries
-                starts, ends, first = cls
-            else:
-                starts = np.empty(len(nl), dtype=np.int64)
-                if len(nl):
-                    starts[0] = 0
-                    starts[1:] = nl[:-1] + 1
-                ends = nl  # position of '\n'
-                # strip trailing '\r'
-                ends_stripped = ends - (buf[np.maximum(ends - 1, 0)] == 13)
-                nonempty = ends_stripped > starts
-                starts, ends = starts[nonempty], ends_stripped[nonempty]
-                first = buf[starts]
+        cls = classify_lines(buf, nl) if scanned is not None else None
+        if cls is not None:
+            # one C pass (~6 ops/line) instead of four full-width
+            # numpy temporaries
+            starts, ends, first = cls
+        else:
+            starts = np.empty(len(nl), dtype=np.int64)
+            if len(nl):
+                starts[0] = 0
+                starts[1:] = nl[:-1] + 1
+            ends = nl  # position of '\n'
+            # strip trailing '\r'
+            ends_stripped = ends - (buf[np.maximum(ends - 1, 0)] == 13)
+            nonempty = ends_stripped > starts
+            starts, ends = starts[nonempty], ends_stripped[nonempty]
+            first = buf[starts]
         self._line_starts = starts
         self._line_ends = ends
         self._tabs_arr = tabs
@@ -403,11 +391,7 @@ class GraphStorage:
         log.info(
             "constructing indexes for node/edge IDs, node lengths, and P/W lines.."
         )
-        self._index_nodes(
-            starts[is_s],
-            ends[is_s],
-            pre=follow if (follow is not None and follow.s_ok) else None,
-        )
+        self._index_nodes(starts[is_s], ends[is_s])
 
         # paths/walks in file order
         pw_mask = is_p | is_w
@@ -417,9 +401,6 @@ class GraphStorage:
         self.path_segments: List[PathSegment] = []
         self._pw_seq_spans: List[Tuple[int, int]] = []
         self._index_paths()
-        self._pretok = None
-        if follow is not None and follow.pretok_batches:
-            self._adopt_pretok(follow)
 
         log.info(
             "found: %d paths/walks, %d nodes",
@@ -545,28 +526,17 @@ class GraphStorage:
 
     # -- nodes ----------------------------------------------------------------
 
-    def _index_nodes(
-        self, s_starts: np.ndarray, s_ends: np.ndarray, pre=None
-    ) -> None:
+    def _index_nodes(self, s_starts: np.ndarray, s_ends: np.ndarray) -> None:
         from .native import s_spans
         from .runtime import effective_threads
 
         n = len(s_starts)
         name_starts = s_starts + 2
-        res = None
-        fused_ints = False
-        if pre is not None and len(pre.s_name_ends) == n:
-            # gz follower parsed the S lines behind the inflate frontier
-            res = (pre.s_name_ends, pre.s_seq_lens)
-        else:
-            pre = None
-        if res is None:
-            # the decimal-name parse rides the same cache-hot native pass
-            res = s_spans(
-                self._buf, s_starts, s_ends, effective_threads(),
-                want_ints=True,
-            )
-            fused_ints = res is not None
+        # the decimal-name parse rides the same cache-hot native pass
+        res = s_spans(
+            self._buf, s_starts, s_ends, effective_threads(),
+            want_ints=True,
+        )
         if res is not None:
             name_ends, seq_lens = res[0], res[1]
         else:
@@ -595,19 +565,7 @@ class GraphStorage:
         self._int_names: Optional[np.ndarray] = None
         self._name_spans = (name_starts, name_ends)
         self._name_hash_cache = False  # lazily built for string-name graphs
-        if pre is not None and pre.int_mode is not None:
-            # adopt the follower's identity/sorted decision (same logic,
-            # computed during inflate); the tokenize cache was built
-            # against exactly these arrays
-            self._int_names = pre.s_ints
-            self._int_name_mode = pre.int_mode
-            if pre.int_mode == "sorted":
-                self._int_sorted = pre.int_sorted
-                self._int_sorted_ids = pre.int_sorted_ids
-            return
-        if pre is not None and pre.s_ints is not None:
-            ints = pre.s_ints
-        elif fused_ints:
+        if res is not None:
             ints = res[2]
         else:
             ints = _parse_ints_from_spans(self._buf, name_starts, name_ends)
@@ -723,115 +681,6 @@ class GraphStorage:
                 self._pw_seq_spans.append((t2 + 1, t3))
             self.path_segments.append(seg)
 
-    def _adopt_pretok(self, follow) -> None:
-        """Adopt the gz follower's per-path token CSR cache. Each cached
-        entry is trusted only if its recorded payload span and walk flag
-        match this class's authoritative parse (_index_paths) — a mismatch
-        silently leaves the line uncached."""
-        if follow.int_mode != self._int_name_mode:
-            return
-        n_pw = len(self._pw_starts)
-        if n_pw == 0:
-            return
-        spans = np.asarray(self._pw_seq_spans, dtype=np.int64)
-        loc = np.full(n_pw, -1, dtype=np.int64)
-        batches = []
-        for b_no, (pw_idx, sp, walk, ids, orient, prefsum, bp) in enumerate(
-            follow.pretok_batches
-        ):
-            valid = (pw_idx >= 0) & (pw_idx < n_pw)
-            pw_c = np.clip(pw_idx, 0, n_pw - 1)
-            ok = (
-                valid
-                & (spans[pw_c, 0] == sp[:, 0])
-                & (spans[pw_c, 1] == sp[:, 1])
-                & (self._pw_is_walk[pw_c] == walk)
-            )
-            loc[pw_idx[ok]] = (b_no << 32) | np.flatnonzero(ok)
-            batches.append((ids, orient, prefsum, bp))
-        if (loc >= 0).any():
-            self._pretok = (loc, batches)
-
-    def _runs_from_pretok(self, path_indices, pack):
-        """Serve all_path_item_runs from the gz follower's token cache.
-        Returns the (ids, orient, prefsum, bp) batch — applying the fused
-        membership pack exactly like the native fused tokenizer would —
-        or None when any selected path is uncached (caller re-tokenizes)."""
-        loc, batches = self._pretok
-        sel = (
-            np.arange(len(self._pw_starts), dtype=np.int64)
-            if path_indices is None
-            else np.asarray(path_indices, dtype=np.int64)
-        )
-        locs = loc[sel]
-        if len(locs) == 0 or (locs < 0).any():
-            return None
-        b_nos = locs >> 32
-        ks = locs & 0xFFFFFFFF
-        n = len(sel)
-        lens = np.empty(n, dtype=np.int64)
-        bp = np.zeros(max(n, 1), dtype=np.uint64)
-        for b_no in np.unique(b_nos):
-            m = b_nos == b_no
-            _i, _o, pf, b_bp = batches[b_no]
-            lens[m] = pf[ks[m] + 1] - pf[ks[m]]
-            if b_bp is not None:
-                bp[np.flatnonzero(m)] = b_bp[ks[m]]
-        prefsum = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum(lens, out=prefsum[1:])
-        ids = np.empty(prefsum[-1], dtype=np.int64)
-        orient = np.empty(prefsum[-1], dtype=np.uint8)
-        # copy maximal contiguous runs (consecutive batch entries in both
-        # source and destination collapse to one memcpy — the common case:
-        # slabs select contiguous pw ranges in tokenize order), instead of
-        # one interpreted slice copy per path
-        j = 0
-        while j < n:
-            e = j + 1
-            while (
-                e < n
-                and b_nos[e] == b_nos[j]
-                and ks[e] == ks[e - 1] + 1
-            ):
-                e += 1
-            b_ids, b_or, b_pf, _bb = batches[b_nos[j]]
-            a, b = b_pf[ks[j]], b_pf[ks[e - 1] + 1]
-            ids[prefsum[j] : prefsum[e]] = b_ids[a:b]
-            orient[prefsum[j] : prefsum[e]] = b_or[a:b]
-            j = e
-        if pack:
-            from .native import build_membership, pack_edges_adj
-            from .runtime import effective_threads
-
-            gbit = np.ascontiguousarray(pack["pack_gbit"], dtype=np.int64)
-            nrow = pack.get("pack_node_row")
-            if nrow is not None:
-                done = build_membership(
-                    ids,
-                    prefsum,
-                    np.arange(n, dtype=np.int64),
-                    gbit,
-                    nrow.reshape(1, -1),
-                    effective_threads(),
-                )
-                if not done:
-                    return None  # native gone mid-run: let caller re-tokenize
-                nrow[0] = 0  # sentinel slot (matches stream._pack_row)
-            erow = pack.get("pack_edge_row")
-            if erow is not None:
-                if not pack_edges_adj(
-                    ids,
-                    orient,
-                    prefsum,
-                    gbit,
-                    pack["pack_edge_adj"],
-                    erow,
-                    effective_threads(),
-                ):
-                    return None
-                erow[0] = 0
-        return ids, orient, prefsum, bp
-
     def all_path_item_runs(
         self,
         path_indices: Optional[np.ndarray] = None,
@@ -852,10 +701,6 @@ class GraphStorage:
         native lib) — callers fall back to path_item_run."""
         if not len(self._pw_starts):
             return None
-        if self._pretok is not None:
-            res = self._runs_from_pretok(path_indices, pack)
-            if res is not None:
-                return res
         from .native import tokenize_batch
         from .runtime import effective_threads
 

@@ -137,15 +137,6 @@ def _build_lib() -> Optional[ctypes.CDLL]:
     lib.pt_count_tokens.argtypes = [
         u8p, i64p, i64p, u8p, i64, i64p, i64p, ctypes.c_int32,
     ]
-    lib.pt_tokenize_serial.restype = i64
-    lib.pt_tokenize_serial.argtypes = [
-        u8p, i64p, i64p, u8p, i64, i64p,
-        i64p, u8p, i64,
-        ctypes.c_int32, i64,
-        i64p, i64p, i64,
-        u32p, u64p,
-        i64p, ctypes.c_int32, i64p, i64p,
-    ]
     lib.pt_lookup_edges.restype = i64
     lib.pt_lookup_edges.argtypes = [
         i64p, u8p,       # ids, orient
@@ -383,26 +374,11 @@ def _get_libdeflate():
     return None
 
 
-def gzip_decompress_buffer(
-    raw: np.ndarray,
-    size_hint: int,
-    out: Optional[bytearray] = None,
-    on_grow=None,
-    return_len: bool = False,
-):
+def gzip_decompress_buffer(raw: np.ndarray, size_hint: int) -> Optional[bytearray]:
     """Inflate a (possibly multi-member) gzip byte buffer with libdeflate
     into one bytearray. Returns None when libdeflate is unavailable or the
     stream is malformed (caller falls back to the zlib path, which raises
-    the user-facing error).
-
-    `out`: caller-provided destination bytearray (its existing contents may
-    be anything — e.g. the gz overlap pipeline's 0xFF sentinel prefill); a
-    fresh zeroed buffer is allocated when omitted. `on_grow` is called
-    (no args) right before the destination is reallocated on
-    INSUFFICIENT_SPACE — concurrent readers of `out` must treat their views
-    as stale from that point. With `return_len` the buffer is NOT trimmed
-    (so exported memoryviews stay legal) and the return value is
-    (buffer, decompressed_len) instead of the trimmed buffer."""
+    the user-facing error)."""
     lib = _get_libdeflate()
     if lib is None or len(raw) < 18:
         return None
@@ -410,9 +386,7 @@ def gzip_decompress_buffer(
     if not d:
         return None
     try:
-        cap = max(int(size_hint), 1 << 20)
-        if out is None:
-            out = bytearray(cap)
+        out = bytearray(max(int(size_hint), 1 << 20))
         in_off = 0
         out_off = 0
         n_in = len(raw)
@@ -440,8 +414,6 @@ def gzip_decompress_buffer(
                 )
                 del view
                 if rc == 3:  # INSUFFICIENT_SPACE: grow 1.5x and retry
-                    if on_grow is not None:
-                        on_grow()
                     grown = bytearray(len(out) + len(out) // 2 + (1 << 20))
                     grown[:out_off] = memoryview(out)[:out_off]
                     out = grown
@@ -451,8 +423,6 @@ def gzip_decompress_buffer(
                 return None
             in_off += ain.value
             out_off += aout.value
-        if return_len:
-            return out, out_off
         del out[out_off:]
         return out
     finally:
@@ -634,102 +604,6 @@ def tokenize_batch(
         rc = lib.pt_tokenize_batch(*common, ctypes.c_int32(n_threads))
     if rc < 0:
         return None
-    return ids[:rc], orient[:rc], prefsum, bp
-
-
-def tokenize_serial(
-    buf: np.ndarray,
-    starts: np.ndarray,
-    ends: np.ndarray,
-    walk: np.ndarray,
-    mode: int,
-    n_items: int,
-    sorted_vals: Optional[np.ndarray] = None,
-    sorted_ids: Optional[np.ndarray] = None,
-    node_lens: Optional[np.ndarray] = None,
-    name_hash: Optional[Tuple[np.ndarray, int, np.ndarray, np.ndarray]] = None,
-    cap_hint: Optional[int] = None,
-):
-    """Single-pass serial tokenize: no counting pre-pass (the payload is
-    read once, not twice), prefsum filled on the fly. The gz follower's
-    during-inflate hot path — one core is all it has, so halving its byte
-    reads matters more than thread fan-out. Output arrays are allocated
-    at the worst-case bound (len/2+2 tokens per span) and returned as
-    views trimmed to the real count (shrink-copied when the slack is
-    large). Returns (ids, orient, prefsum, bp or None) or None
-    (unavailable / malformed / over-capacity — caller uses
-    tokenize_batch)."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    n = len(starts)
-    i64p = ctypes.POINTER(ctypes.c_int64)
-    u32p = ctypes.POINTER(ctypes.c_uint32)
-    u64p = ctypes.POINTER(ctypes.c_uint64)
-    s = np.ascontiguousarray(starts, dtype=np.int64)
-    e = np.ascontiguousarray(ends, dtype=np.int64)
-    w = np.ascontiguousarray(walk, dtype=np.uint8)
-    prefsum = np.zeros(n + 1, dtype=np.int64)
-    # worst case is one token per 2 payload bytes; callers who know the
-    # running token density pass a tighter cap_hint (a miss is safe: the C
-    # side bails per-span and we return None for the two-phase fallback)
-    cap = int((e - s).sum() // 2) + 2 * n + 16
-    if cap_hint is not None:
-        cap = min(cap, max(int(cap_hint), 2 * n + 16))
-    ids = np.empty(cap, dtype=np.int64)
-    orient = np.empty(cap, dtype=np.uint8)
-    bp = np.zeros(max(n, 1), dtype=np.uint64) if node_lens is not None else None
-    sv = (
-        sorted_vals.ctypes.data_as(i64p)
-        if sorted_vals is not None
-        else ctypes.cast(None, i64p)
-    )
-    si = (
-        sorted_ids.ctypes.data_as(i64p)
-        if sorted_ids is not None
-        else ctypes.cast(None, i64p)
-    )
-    nl = (
-        np.ascontiguousarray(node_lens, dtype=np.uint32).ctypes.data_as(u32p)
-        if node_lens is not None
-        else ctypes.cast(None, u32p)
-    )
-    if name_hash is not None:
-        nh_slots, nh_log2, nh_starts, nh_ends = name_hash
-        nhs = nh_slots.ctypes.data_as(i64p)
-        nst = nh_starts.ctypes.data_as(i64p)
-        nen = nh_ends.ctypes.data_as(i64p)
-    else:
-        nh_log2 = 0
-        nhs = nst = nen = ctypes.cast(None, i64p)
-    rc = lib.pt_tokenize_serial(
-        _as_u8p(buf),
-        s.ctypes.data_as(i64p),
-        e.ctypes.data_as(i64p),
-        _as_u8p(w),
-        ctypes.c_int64(n),
-        prefsum.ctypes.data_as(i64p),
-        ids.ctypes.data_as(i64p),
-        _as_u8p(orient),
-        ctypes.c_int64(cap),
-        ctypes.c_int32(mode),
-        ctypes.c_int64(n_items),
-        sv,
-        si,
-        ctypes.c_int64(len(sorted_vals) if sorted_vals is not None else 0),
-        nl,
-        bp.ctypes.data_as(u64p) if bp is not None else ctypes.cast(None, u64p),
-        nhs,
-        ctypes.c_int32(nh_log2),
-        nst,
-        nen,
-    )
-    if rc < 0:
-        return None
-    if cap > rc + rc // 4 + 1024:
-        # large slack: copy down so the retained arrays don't pin ~2x
-        # the real footprint for the graph's lifetime
-        return ids[:rc].copy(), orient[:rc].copy(), prefsum, bp
     return ids[:rc], orient[:rc], prefsum, bp
 
 

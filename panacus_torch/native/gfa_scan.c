@@ -572,42 +572,6 @@ EXPORT int64_t pt_tokenize_batch(
     return tot;
 }
 
-/* Serial single-pass tokenize: parses spans in order, filling prefsum on
- * the fly — no counting pre-pass, so the payload is read once instead of
- * twice. Built for the gz follower, whose during-inflate budget is one
- * core. The caller supplies a worst-case capacity; each span is bounds-
- * checked ((len/2)+2 tokens max) before parsing, and the call bails with
- * the fallback sentinel when the next span would not fit (caller reverts
- * to the two-phase path). Returns total tokens or -(span+1) on error. */
-EXPORT int64_t pt_tokenize_serial(
-    const uint8_t* buf,
-    const int64_t* starts, const int64_t* ends, const uint8_t* walk,
-    int64_t n_spans,
-    int64_t* prefsum,
-    int64_t* out_ids, uint8_t* out_orient, int64_t cap_ids,
-    int32_t mode, int64_t n_items,
-    const int64_t* sorted_vals, const int64_t* sorted_ids, int64_t n_sorted,
-    const uint32_t* node_lens, uint64_t* bp_out,
-    const int64_t* name_slots, int32_t name_log2,
-    const int64_t* name_starts, const int64_t* name_ends)
-{
-    batch_ctx c = {
-        buf, starts, ends, walk, n_spans, prefsum, NULL,
-        out_ids, out_orient, mode, n_items,
-        sorted_vals, sorted_ids, n_sorted, node_lens, bp_out,
-        name_slots, name_log2, name_starts, name_ends,
-        NULL, {NULL}, {NULL}, NULL, NULL,
-        1, 0, 0, 1, PTHREAD_MUTEX_INITIALIZER,
-    };
-    prefsum[0] = 0;
-    for (int64_t k = 0; k < n_spans; k++) {
-        int64_t need = (ends[k] - starts[k]) / 2 + 2;
-        if (prefsum[k] + need > cap_ids) return -1000000000 - k;
-        if (parse_span(&c, k, 0) != 0) return -(k + 1);
-    }
-    return prefsum[n_spans];
-}
-
 /* Fused tokenize + membership pack: phase B additionally ORs each span's
  * freshly parsed ids (cache-hot) into node and/or edge membership rows —
  * the separate pack passes re-read the whole token array (~8 bytes/token)
@@ -969,8 +933,8 @@ static void scan_run(scan_ctx* c, int phase, int32_t n_threads)
  * stripped) and first byte of every NON-EMPTY line, compacted. One cheap
  * serial pass (~6 ops/line) replacing several full-width numpy
  * temporaries; `prev_end` is the byte offset where the previous chunk's
- * processing stopped (0 for a whole-buffer call), so the gz follower can
- * call it chunk-wise. Returns the number of kept lines. */
+ * processing stopped (0 for a whole-buffer call), so it can be called
+ * chunk-wise. Returns the number of kept lines. */
 EXPORT int64_t pt_classify_lines(
     const uint8_t* buf, const int64_t* nl, int64_t n_nl, int64_t prev_end,
     int64_t* starts, int64_t* ends, uint8_t* first)

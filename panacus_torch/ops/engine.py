@@ -395,6 +395,20 @@ class MembershipStream:
                 ev.record(stream)
             self._events[s].append(ev)
 
+    def discard(self) -> None:
+        """Drop a stream that will not be finalized (its build gave up):
+        wait for the copies already issued, so that neither M nor a pinned
+        row is freed under one, then release both."""
+        if self._cuda:
+            for events in self._events:
+                for ev in events:
+                    ev.synchronize()
+            self._events = [[] for _ in self.engine.devices]
+            self._host_rows = {}
+            self.engine.shards = []
+        else:
+            self._M_host = None
+
     def finalize(self) -> CountingEngine:
         eng = self.engine
         if not self._cuda:

@@ -2,14 +2,23 @@
 
 Port of panacus_tpu/stream.py (streamed_total_abaci) onto the port's
 MembershipStream. Every membership row comes from `host_row` (a pinned host
-row on CUDA, a row of the final matrix on the CPU), so the C tokenizer ORs
-each path's ids into it while they are cache-hot, and `feed` uploads it
-asynchronously while the next slab is tokenized. This is the JAX package's
-serial fused tokenize+pack schedule; its pipelined two-thread schedule is
-not ported.
+row on CUDA, a row of the final matrix on the CPU), and `feed` uploads it
+asynchronously while the next slab is tokenized.
 
-Node rows are packed while the async L-line edge indexer still runs; edge
-slabs are stashed only until the indexer completes (polled each slab).
+One schedule, on one thread: the C tokenizer ORs each path's ids into the
+host rows while they are cache-hot (fused tokenize+pack). Node rows are
+packed while the async L-line edge indexer still runs; edge slabs are
+stashed only until the indexer completes (polled each slab). This is the
+JAX package's serial schedule. Its pipelined schedule (a worker thread
+tokenizing slab i+1 while the main thread packs slab i), which the JAX
+package runs on an accelerator with more than 2 host threads, is not
+ported: on an H100 host it lost or tied against this one at 3 and 32
+slabs for -c all, node, edge and gzip input (PERF.md), since every C
+stage here already runs on all host threads.
+
+Each slab's tokenize and pack run under profiler scopes ("tokenize slab
+i", "pack slab i"), so a torch.profiler trace shows where the build's
+time goes.
 
 The build also returns each path's length in nodes and bp (for `info`),
 and the item tables that the coverage-table export reads: a
@@ -28,6 +37,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+from torch.profiler import record_function
 
 from .abacus import AbacusByTotal, path_order_groups
 from .gfa import GraphStorage, PathSegment, SlabbedItemTable
@@ -280,8 +290,15 @@ def streamed_total_abaci(
         f = getattr(graph, "_edge_future", None)
         return f is None or f.done()
 
+    def bail():
+        """The tokenizer bailed: drop the half-fed streams (the classic
+        path runs)."""
+        for stream in (node_stream, edge_stream):
+            if stream is not None:
+                stream.discard()
+
     stashed = []
-    for slab in slabs:
+    for i, slab in enumerate(slabs):
         if need_edge and edge_stream is None and edge_index_ready():
             # ready the edge stream BEFORE tokenizing so the edge pack
             # rides the same pass
@@ -299,23 +316,26 @@ def streamed_total_abaci(
             pack["pack_edge_adj"] = graph.edge_adj()
         if pack:
             pack["pack_gbit"] = np.ascontiguousarray(slab.gidx_rel, dtype=np.int64)
-        batch = graph.all_path_item_runs(slab.path_ids, pack=pack or None)
+        with record_function(f"tokenize slab {i}"):
+            batch = graph.all_path_item_runs(slab.path_ids, pack=pack or None)
         if batch is None:  # tokenizer bailed: let the classic path run
+            bail()
             return None
-        if need_node:
-            # path lengths for node and bp runs only, as the classic
-            # itemizer fills them
-            ids, _, prefsum, bp = batch
-            counts = np.diff(prefsum)
-            for k, pid in enumerate(slab.path_ids):
-                paths_len[segs[int(pid)]] = (int(counts[k]), int(bp[k]))
-            node_table.add_slab(slab.path_ids, ids, prefsum)
-            if slab.word >= 0:
-                node_stream.feed(slab.word, pack["pack_node_row"])
-        if edge_stream is not None:
-            consume_edge(slab, batch, "pack_edge_row" in pack)
-        elif need_edge:
-            stashed.append((slab, batch))
+        with record_function(f"pack slab {i}"):
+            if need_node:
+                # path lengths for node and bp runs only, as the classic
+                # itemizer fills them
+                ids, _, prefsum, bp = batch
+                counts = np.diff(prefsum)
+                for k, pid in enumerate(slab.path_ids):
+                    paths_len[segs[int(pid)]] = (int(counts[k]), int(bp[k]))
+                node_table.add_slab(slab.path_ids, ids, prefsum)
+                if slab.word >= 0:
+                    node_stream.feed(slab.word, pack["pack_node_row"])
+            if edge_stream is not None:
+                consume_edge(slab, batch, "pack_edge_row" in pack)
+            elif need_edge:
+                stashed.append((slab, batch))
     if need_edge:
         if edge_stream is None:  # indexer outlived tokenization: join
             make_edge_stream()

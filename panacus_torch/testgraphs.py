@@ -5,9 +5,11 @@ that `chip_smoke.py` needs nothing outside panacus_torch:
 
 - `make_graph` with GEN_VERSION, N_NODES and N_PATHS: bench.py's
   pggb-like graph (HPRC chr22 pggb scale at the default 900,000 nodes and
-  90 paths; PANACUS_BENCH_NODES / PANACUS_BENCH_PATHS cut it). The bytes
-  equal bench.make_graph's at the same size, so measurements on either
-  graph compare.
+  90 paths; PANACUS_BENCH_NODES / PANACUS_BENCH_PATHS cut it, its
+  n_nodes and n_paths arguments give other sizes). The bytes equal
+  bench.make_graph's at the same size, so measurements on either graph
+  compare. `write_gzip` compresses a graph as bench.py's gz stage does:
+  one gzip member at level 1.
 - `_write_dryrun_gfa`, `_oracle` and `_oracle_ordered`: __graft_entry__.py's
   600-node graph (DRYRUN_NODES; DRYRUN_SAMPLES samples x 2 haplotypes) and
   its independent numpy recomputations of membership, hists and ordered
@@ -36,21 +38,24 @@ DRYRUN_NODES = 600
 DRYRUN_SAMPLES = 4
 
 
-def make_graph(path: str) -> None:
+def make_graph(path: str, n_nodes: int = None, n_paths: int = None) -> None:
     """Deterministic pggb-like graph at chr22-pggb scale by default
     (~340 MB; the reference baseline graph is 402 MB): path lines dominate
-    the bytes, integer node names, short segments. N_PATHS / 2 samples x 2
+    the bytes, integer node names, short segments. n_paths / 2 samples x 2
     haplotypes; haplotype 0 is a P line (PanSN name), haplotype 1 a W line
     — HPRC graphs carry both spellings. Each path walks the node line with
     gaps in 1..MAX_GAP and every (u, u+g) pair is declared as an L line, so
-    paths are edge-consistent by construction."""
+    paths are edge-consistent by construction. n_nodes and n_paths default
+    to N_NODES and N_PATHS (then the bytes are bench.make_graph's)."""
+    n_nodes = N_NODES if n_nodes is None else int(n_nodes)
+    n_paths = N_PATHS if n_paths is None else int(n_paths)
     rng = np.random.default_rng(SEED)
     t0 = time.time()
-    lens = rng.integers(1, 17, size=N_NODES)
+    lens = rng.integers(1, 17, size=n_nodes)
     seq_pool = ("ACGT" * 5)[:16]
-    n_edges = sum(N_NODES - g for g in range(1, MAX_GAP + 1))
+    n_edges = sum(n_nodes - g for g in range(1, MAX_GAP + 1))
     gap_pool = rng.integers(
-        1, MAX_GAP + 1, size=N_NODES + N_PATHS, dtype=np.int64
+        1, MAX_GAP + 1, size=n_nodes + n_paths, dtype=np.int64
     )
 
     def join_lines(parts, sep=b"\n"):
@@ -58,7 +63,7 @@ def make_graph(path: str) -> None:
 
     with open(path, "wb") as f:
         f.write(b"H\tVN:Z:1.0\n")
-        names = np.arange(1, N_NODES + 1).astype("S12")
+        names = np.arange(1, n_nodes + 1).astype("S12")
         seqs = np.array(
             [seq_pool[:k].encode() for k in range(1, 17)], dtype="S16"
         )[lens - 1]
@@ -66,7 +71,7 @@ def make_graph(path: str) -> None:
         f.write(join_lines(np.char.add(s_lines, seqs)))
         del s_lines, seqs
         for g in range(1, MAX_GAP + 1):
-            eu = names[: N_NODES - g]
+            eu = names[: n_nodes - g]
             ev = names[g:]
             l_lines = np.char.add(
                 np.char.add(np.char.add(b"L\t", eu), b"\t+\t"),
@@ -74,10 +79,10 @@ def make_graph(path: str) -> None:
             )
             f.write(join_lines(l_lines))
             del l_lines
-        for p in range(N_PATHS):
+        for p in range(n_paths):
             sample, hap = p // 2, p % 2
-            visits = 1 + np.cumsum(gap_pool[p : p + N_NODES])
-            visits = visits[: np.searchsorted(visits, N_NODES, side="right")]
+            visits = 1 + np.cumsum(gap_pool[p : p + n_nodes])
+            visits = visits[: np.searchsorted(visits, n_nodes, side="right")]
             if hap == 0:
                 toks = np.char.add(visits.astype("S12"), b"+")
                 f.write(f"P\ts{sample}#0#chr1\t".encode())
@@ -94,16 +99,36 @@ def make_graph(path: str) -> None:
     )
 
 
-def cached_graph(directory: str) -> str:
-    """The path of make_graph's graph at the current N_NODES and N_PATHS in
-    `directory`, generated there once and reused (the file name carries the
-    generator version and the size)."""
+def cached_graph(directory: str, n_nodes: int = None, n_paths: int = None) -> str:
+    """The path of make_graph's graph at n_nodes and n_paths (by default
+    N_NODES and N_PATHS) in `directory`, generated there once and reused
+    (the file name carries the generator version and the size)."""
+    n_nodes = N_NODES if n_nodes is None else n_nodes
+    n_paths = N_PATHS if n_paths is None else n_paths
     os.makedirs(directory, exist_ok=True)
-    gfa = os.path.join(directory, f"bench_v{GEN_VERSION}_{N_NODES}_{N_PATHS}.gfa")
+    gfa = os.path.join(directory, f"bench_v{GEN_VERSION}_{n_nodes}_{n_paths}.gfa")
     if not os.path.exists(gfa):
-        make_graph(gfa + ".tmp")
+        make_graph(gfa + ".tmp", n_nodes, n_paths)
         os.replace(gfa + ".tmp", gfa)
     return gfa
+
+
+def write_gzip(src: str, dst: str, chunk: int = 16 << 20) -> str:
+    """Write `src` to `dst` as ONE gzip member at level 1, as bench.py's
+    gz stage compresses its graph (`gzip -1`), through zlib in chunks.
+    Returns dst."""
+    import zlib
+
+    comp = zlib.compressobj(1, zlib.DEFLATED, 31)  # wbits 31: a gzip member
+    with open(src, "rb") as f, open(dst + ".tmp", "wb") as out:
+        while True:
+            block = f.read(chunk)
+            if not block:
+                break
+            out.write(comp.compress(block))
+        out.write(comp.flush())
+    os.replace(dst + ".tmp", dst)
+    return dst
 
 
 def _write_dryrun_gfa(path: str):

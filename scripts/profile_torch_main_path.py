@@ -12,8 +12,10 @@ this process:
 
 - one first run, then three warm runs: wall and phase times of each;
 - one warm run under torch.profiler: device time per kernel and per copy
-  kind, summed from the trace, and the busy share of the wall
-  (trace written to OUT/profile_trace.json);
+  kind, summed from the trace, and the busy share of the wall; per phase
+  scope (index, abaci_by_total, hists, growth: runtime.phase_timer's
+  record_function scopes) the device's busy time and longest idle gap,
+  and the streamed build's slab scopes (trace written to OUT/profile_trace.json);
 - one warm run under cProfile: host functions by own time
   (OUT/profile_cprofile.txt);
 - cold subprocesses: `import torch` alone, the port's CLI on cuda, and the
@@ -147,8 +149,10 @@ def main() -> int:
 
 
 def profiled_run(argv, trace):
-    """One run under torch.profiler: device time by kind and kernel, and the
-    device's busy share of the wall."""
+    """One run under torch.profiler: device time by kind and kernel, the
+    device's busy share of the wall, and per phase scope
+    (runtime.phase_timer) its device-busy time and longest idle gap, with
+    the streamed build's slab scopes."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -168,6 +172,7 @@ def profiled_run(argv, trace):
         print(f"[profile]   {key}: {t / 1e3:.4f} ms")
     for (cat, name), t in us.most_common(8):
         print(f"[profile]   top {cat} {name}: {t / 1e3:.4f} ms")
+    chip_smoke.print_scopes("profile", chip_smoke.trace_scopes(trace), wall)
 
 
 if __name__ == "__main__":

@@ -4,8 +4,9 @@
   `similarity`, `table`, `report --json` (every analysis kind that adds a
   section) and `render` of that JSON through panacus_torch on the CPU, then
   the probe entry point (panacus_torch.probe), an `ordered-histgrowth`
-  with M split over three CPU shards, testgraphs.dryrun_multichip on two
-  and CountingEngine.build from pairs, and must finish with no
+  with M split over three CPU shards, testgraphs.dryrun_multichip on two,
+  CountingEngine.build from pairs and `histgrowth -c all` of a gzipped
+  graph, and must finish with no
   `jax` and no `panacus_tpu` module loaded; `python -m panacus_torch.probe` run under
   `-X importtime` imports neither.
 - `torchrun --nproc-per-node 2 -m panacus_torch hist` (two processes of a
@@ -65,6 +66,11 @@ import numpy as np
 from panacus_torch.ops.engine import CountingEngine
 eng = CountingEngine(10, 40, ("cpu",) * 2).build(np.array([1, 10, 10]), np.array([31, 39, 31]))
 assert eng.hist().tolist()[:3] == [8, 1, 1], eng.hist()
+from panacus_torch import testgraphs
+gz = testgraphs.write_gzip(sys.argv[1], sys.argv[3] + ".gfa.gz")
+with contextlib.redirect_stdout(io.StringIO()):
+    rc = run_cli(["histgrowth", "-c", "all", "-H", gz])
+assert rc == 0, rc
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not loaded, loaded
 loaded = sorted(m for m in sys.modules if m.startswith("panacus_tpu"))
@@ -220,21 +226,26 @@ def test_ast_scan_catches_imports(tmp_path):
     ]
 
 
+@pytest.mark.parametrize("sizes", ["module", "arguments"])
 @pytest.mark.parametrize("nodes,paths", [(3000, 90), (1200, 7)])
-def test_make_graph_bytes_equal_bench(tmp_path, monkeypatch, nodes, paths):
+def test_make_graph_bytes_equal_bench(tmp_path, monkeypatch, nodes, paths, sizes):
     """The port's make_graph writes the bytes of bench.make_graph at the
-    same size (the module-level PANACUS_BENCH_NODES / _PATHS sizes)."""
+    same size: by default at the module-level PANACUS_BENCH_NODES / _PATHS
+    sizes, or at the sizes its n_nodes / n_paths arguments give."""
     import bench
 
     from panacus_torch import testgraphs
 
-    for mod in (bench, testgraphs):
+    for mod in (bench, testgraphs) if sizes == "module" else (bench,):
         monkeypatch.setattr(mod, "N_NODES", nodes)
         monkeypatch.setattr(mod, "N_PATHS", paths)
     assert testgraphs.GEN_VERSION == bench.GEN_VERSION
     want, got = tmp_path / "bench.gfa", tmp_path / "port.gfa"
     bench.make_graph(str(want))
-    testgraphs.make_graph(str(got))
+    if sizes == "module":
+        testgraphs.make_graph(str(got))
+    else:
+        testgraphs.make_graph(str(got), n_nodes=nodes, n_paths=paths)
     assert got.read_bytes() == want.read_bytes()
 
 
