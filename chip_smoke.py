@@ -126,6 +126,16 @@ Phases, one or more lines each on stdout:
    inflate route (libdeflate or zlib); then one warm `-c all` under
    torch.profiler: the phase scopes it finds, the device's busy time and
    longest idle gap in each, and the slab scopes of the streamed build.
+10. bench: `panacus_torch.bench.run` in process on the graph of phase 3,
+   on the default devices (every visible GPU), with the launch counts
+   reset just before it and read just after: the stages all / node / edge
+   / gz_node, the group tail against its numpy oracle, and the roofline
+   (pt_fused_hist over 1.07 GB by slope against pt_xor_fold's read). It
+   prints the bench's JSON line and fails unless every stage took the
+   streamed build, the `all` hists equal the hist columns of `histgrowth
+   -a -c all -H` on cuda (and their growth its growth columns), the group
+   stages were verified, pt_fused_hist, pt_ordered_growth, pt_similarity
+   and pt_xor_fold each ran, and device_frac_of_read is at most 1.05.
 
 Phases 3, 4 and 6 run on the first card alone (one shard), whatever the
 number of cards, so their launch counts and times compare across machines.
@@ -133,7 +143,8 @@ number of cards, so their launch counts and times compare across machines.
 The line before the last is a JSON object with one entry per kernel (its
 launches are those of the path it belongs to, `report_launches` those
 of phase 6, `multiprocess_launches` those of phase 8's first layout,
-summed over its ranks, and `front_end_launches` those of phase 9; its times at the largest shape that path hands it, by events
+summed over its ranks, `front_end_launches` those of phase 9 and
+`bench_launches` those of phase 10; its times at the largest shape that path hands it, by events
 as `ms` and, where taken, by slope as `slope_ms`; under `path`, phase
 4b's times); the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero without that
@@ -202,19 +213,6 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-class PhaseLog(logging.Handler):
-    """Collects the port's "phase <name> done" timings (runtime.phase_timer)."""
-
-    def __init__(self):
-        super().__init__()
-        self.phases = {}
-
-    def emit(self, record):
-        if str(record.msg).startswith("phase %s done"):
-            name, seconds = record.args
-            self.phases[name] = self.phases.get(name, 0.0) + seconds
-
-
 def drive(argv, device: str, devices=None):
     """One run of the port's CLI on `device` ("cuda" or "cpu"): (stdout,
     phase seconds, wall). On cuda the membership matrices go to `devices`
@@ -224,6 +222,7 @@ def drive(argv, device: str, devices=None):
     import torch
 
     from panacus_torch.cli import run_cli
+    from panacus_torch.runtime import PhaseLog
 
     os.environ["PANACUS_TORCH_DEVICE"] = device
     if device == "cuda" and devices is None:
@@ -1729,6 +1728,66 @@ def phase_front_end():
     return total
 
 
+# phase 10: panacus_torch.bench in process, on the graph of phase 3
+
+BENCH_KERNELS = ("pt_fused_hist", "pt_ordered_growth", "pt_similarity", "pt_xor_fold")
+# a kernel cannot read faster than the raw read of the same bytes in the same
+# run: a reading above this is a fault of the timing
+FRAC_OF_READ_MAX = 1.05
+
+
+def phase_bench():
+    """panacus_torch.bench.run on the graph of phase 3, on the default devices
+    (every visible GPU), with every kernel's launches counted from 0. Fails
+    unless all four stages took the streamed build, the `all` stage's node,
+    bp and edge hists equal the hist columns of `histgrowth -a -c all -H` on
+    cuda (and their growth its floored growth columns), the group stages
+    were verified, pt_fused_hist, pt_ordered_growth, pt_similarity and
+    pt_xor_fold each ran, and device_frac_of_read <= FRAC_OF_READ_MAX.
+    Returns the launches of each kernel in the bench's run."""
+    from panacus_torch import bench, runtime
+    from panacus_torch.ops import kernels
+    from panacus_torch.utils import CountType, ThresholdContainer
+
+    t_phase = time.perf_counter()
+    os.environ["PANACUS_TORCH_DEVICE"] = "cuda"
+    gfa = bench_graph()
+    kernels.reset_launches()
+    out, hists = bench.run(gfa, runtime.resolve_devices())
+    launches = dict(kernels.launches)
+    print(f"[bench] json: {json.dumps(out)}")
+    print(f"[bench] launches: {launches}")
+    if sorted(out["routes"]) != sorted(s[0] for s in bench.STAGES) or set(
+        out["routes"].values()
+    ) != {"streamed"}:
+        fail(f"a bench stage did not take the streamed build: {out['routes']}")
+    if out["group_stages"]["verified"] is not True:
+        fail("the bench's group stages were not verified")
+    for name in BENCH_KERNELS:
+        if launches[name] < 1:
+            fail(f"the bench did not launch {name}")
+    if not out["device_frac_of_read"] <= FRAC_OF_READ_MAX:
+        fail(f"device_frac_of_read {out['device_frac_of_read']} > {FRAC_OF_READ_MAX}")
+
+    argv = ["histgrowth", "-a", "-c", "all", "-H", "-q", bench.QUORUM, "-l",
+            bench.COVERAGE, gfa]
+    _, rows = table(drive(argv, "cuda")[0])
+    order = (CountType.NODE, CountType.BP, CountType.EDGE)
+    got = [[int(x) for x in r[1:4]] for r in rows[4:]]
+    if got != [list(r) for r in zip(*(hists[ct].coverage for ct in order))]:
+        fail("the bench's hists differ from the hist columns of histgrowth -a on cuda")
+    tc = ThresholdContainer.parse_params(bench.QUORUM, bench.COVERAGE)
+    cols = [g for ct in order for g in hists[ct].calc_all_growths(tc)]
+    for i, r in enumerate(rows[5:], start=1):
+        if [float(x) for x in r[4:]] != [math.floor(g[i]) for g in cols]:
+            fail(f"the bench's growth differs from histgrowth -a on cuda in row {i}")
+    print("[bench] routes all streamed; hists and growth == histgrowth -a -c all -H on "
+          f"cuda; group stages verified; launches of {', '.join(BENCH_KERNELS)} >= 1; "
+          f"device_frac_of_read {out['device_frac_of_read']:.4f} <= {FRAC_OF_READ_MAX}")
+    print(f"[bench] phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "panacus_torch")):
         fail("panacus_torch not found: run from the root of a checkout")
@@ -1756,10 +1815,12 @@ def main() -> int:
     multi_launches = phase_multiprocess(single)
     del single
     front_launches = phase_front_end()
+    bench_launches = phase_bench()
     for name, r in res.items():
         r["report_launches"] = report_launches[name]
         r["multiprocess_launches"] = multi_launches.get(name, 0)
         r["front_end_launches"] = front_launches[name]
+        r["bench_launches"] = bench_launches[name]
     for name, r in res.items():
         r["share_of_read"] = r.pop("_bytes") / (r["ms"] / 1e3) / read_bps
         print(f"[probe] {name}: {r['share_of_read']:.4f} of the measured read, "

@@ -76,6 +76,9 @@ class GraphBroker:
         self.gfa_file = ""
         self.input_requirements: Set = set()
         self.count_type = CountType.ALL
+        # how the last total abaci were built: "multihost", "streamed" or
+        # "classic" (the itemizer: masked runs and tokenizer bails)
+        self.build_route: Optional[str] = None
 
     # -- state-change protocol (reference: graph_broker.rs:96-147) ------------
 
@@ -213,13 +216,16 @@ class GraphBroker:
                 streamed = multihost_total_abaci(
                     self.graph_aux, self.mask, count_types, need_itemized, self.devices
                 )
+            self.build_route = "multihost"
             if streamed is None:
+                self.build_route = "streamed"
                 streamed = streamed_total_abaci(
                     self.graph_aux, self.mask, count_types, self.devices
                 )
             if streamed is not None:
                 abaci, itemized, path_order, groups = streamed
             else:
+                self.build_route = "classic"
                 itemized = itemize_paths(self.graph_aux, self.mask, count_types)
                 path_order, groups = path_order_groups(
                     self.mask, self.graph_aux.path_segments

@@ -36,6 +36,8 @@ import tempfile
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from ..runtime import PhaseLog
+
 
 class RankFailure(RuntimeError):
     """A rank exited non-zero, or the ranks outlived their time limit."""
@@ -122,22 +124,18 @@ def launch(
 # -- one rank's worker ---------------------------------------------------------
 
 
-class _RunLog(logging.Handler):
+class _RunLog(PhaseLog):
     """Collects the phase_timer phases and the multi-process build's
     payload share (its log line ends in "<mine> of <total> path payload
     bytes")."""
 
     def __init__(self):
         super().__init__()
-        self.phases: Dict[str, float] = {}
         self.payload: Optional[List[int]] = None
 
     def emit(self, record):
-        msg = str(record.msg)
-        if msg.startswith("phase %s done"):
-            name, seconds = record.args
-            self.phases[name] = self.phases.get(name, 0.0) + seconds
-        elif msg.startswith("multi-process build") and self.payload is None:
+        super().emit(record)
+        if str(record.msg).startswith("multi-process build") and self.payload is None:
             self.payload = [int(record.args[-2]), int(record.args[-1])]
 
 

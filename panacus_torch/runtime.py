@@ -15,6 +15,7 @@ the collectives below are the engine's and the ingest's.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import sys
@@ -90,6 +91,25 @@ def configure_host_memory() -> None:
         install_hugepage_allocator()
     except Exception as e:  # pragma: no cover
         log.debug("hugepage allocator unavailable: %s", e)
+
+
+# HBM peak of each card, GB/s, by device-name prefix (NVIDIA's data sheets):
+# the H100 SXM part, as torch.cuda.get_device_name names it, and the PCIe part
+_HBM_PEAK_GBPS = {
+    "NVIDIA H100 80GB HBM3": 3350,
+    "NVIDIA H100 PCIe": 2000,
+}
+
+
+def hbm_peak_bytes_per_s(name: str) -> "float | None":
+    """The HBM peak in bytes/s of the card named `name`
+    (torch.cuda.get_device_name), or None for a card the table does not
+    know. The longest matching prefix wins, as in panacus_tpu's table."""
+    best = None
+    for prefix, gbps in _HBM_PEAK_GBPS.items():
+        if name.startswith(prefix) and (best is None or len(prefix) > best[0]):
+            best = (len(prefix), gbps)
+    return best[1] * 1e9 if best else None
 
 
 def _local_rank():
@@ -285,3 +305,32 @@ class phase_timer:
             self._scope.__exit__(*exc)
         log.info("phase %s done; time elapsed: %.3fs", self.name, seconds)
         return False
+
+
+class PhaseLog(logging.Handler):
+    """Sums the seconds of phase_timer's records by phase name."""
+
+    def __init__(self):
+        super().__init__()
+        self.phases = {}
+
+    def emit(self, record):
+        if str(record.msg).startswith("phase %s done"):
+            name, seconds = record.args
+            self.phases[name] = self.phases.get(name, 0.0) + seconds
+
+
+@contextlib.contextmanager
+def phase_log():
+    """The phase_timer seconds of the block, {name: s}: a PhaseLog on the
+    "panacus" logger, set to INFO inside the block (the records reach no
+    other handler unless the caller set one up), its level restored after."""
+    handler = PhaseLog()
+    level = log.level
+    log.setLevel(logging.INFO)
+    log.addHandler(handler)
+    try:
+        yield handler.phases
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
