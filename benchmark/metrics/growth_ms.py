@@ -1,0 +1,6 @@
+"""growth_ms: the program's phase `growth` (runtime.phase_timer), mean ms a
+command of the window."""
+
+
+def read(run):
+    return run.phase_ms("growth")
