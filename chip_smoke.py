@@ -1578,9 +1578,9 @@ def busy_in(busy, a, b):
 def trace_scopes(trace_path: str):
     """From a chrome trace of one CLI run: each phase scope (runtime's
     phase_timer) with its wall, the device's busy time inside it and its
-    longest idle gap (us); the slab scopes of the streamed build ("tokenize
-    slab i", "pack slab i"): their number and summed wall (us); the
-    device's busy time in all."""
+    longest idle gap (us); the slab scopes of the streamed build
+    (`build.tokenize`, `build.pack`, one a slab): their number and summed
+    wall (us); the device's busy time in all."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     busy = union(
@@ -1595,16 +1595,12 @@ def trace_scopes(trace_path: str):
             t, gap = busy_in(busy, e["ts"], e["ts"] + e["dur"])
             w, b, g = phases.get(e["name"], (0.0, 0.0, 0.0))
             phases[e["name"]] = (w + e["dur"], b + t, max(g, gap))
-    slabs = {}
-    for e in notes:
-        kind, _, i = e["name"].rpartition(" slab ")
-        if kind in ("tokenize", "pack") and i.isdigit():
-            slabs[(kind, int(i))] = (e["ts"], e["ts"] + e["dur"])
     kinds = ("tokenize", "pack")
+    slabs = {k: [e["dur"] for e in notes if e["name"] == "build." + k] for k in kinds}
     return {
         "phases": phases,
-        "n_slab_scopes": {k: sum(1 for (kk, _) in slabs if kk == k) for k in kinds},
-        "slab_us": {k: sum(b - a for (kk, _), (a, b) in slabs.items() if kk == k) for k in kinds},
+        "n_slab_scopes": {k: len(v) for k, v in slabs.items()},
+        "slab_us": {k: sum(v) for k, v in slabs.items()},
         "busy_us": sum(b - a for a, b in busy),
     }
 

@@ -23,6 +23,11 @@ class Analysis:
     def get_type(self) -> str:
         raise NotImplementedError
 
+    def prepare(self, gb: "GraphBroker") -> None:
+        """Compute what generate_table formats, so that the formatting can
+        be timed apart; analyses that compute in generate_table itself
+        leave it."""
+
     def generate_table(self, gb: Optional["GraphBroker"]) -> str:
         raise NotImplementedError
 

@@ -39,6 +39,9 @@ class Growth(Analysis):
             ]
         self._inner = (growths, [], hist_aux, None)
 
+    def prepare(self, gb) -> None:
+        self._set_inner(gb)
+
     def generate_table(self, gb) -> str:
         self._set_inner(gb)
         growths, comments, hist_aux, hists = self._inner

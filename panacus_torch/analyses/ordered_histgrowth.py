@@ -51,6 +51,9 @@ class OrderedHistgrowth(Analysis):
                 growths.append([float("nan")] + ab.calc_growth(c, q))
         self._inner = (growths, hist_aux)
 
+    def prepare(self, gb) -> None:
+        self._set_inner(gb)
+
     def generate_table(self, gb) -> str:
         if gb is None:
             return ""

@@ -57,6 +57,9 @@ class Similarity(Analysis):
         self._table = table
         self._labels = labels
 
+    def prepare(self, gb) -> None:
+        self._set_table(gb)
+
     def generate_table(self, gb) -> str:
         self._set_table(gb)
         text = write_metadata_comments()

@@ -32,6 +32,7 @@ from .runtime import (
     resolve_devices,
     set_num_threads,
     shutdown_distributed,
+    span,
     world,
 )
 from .utils import CountType
@@ -456,14 +457,21 @@ EXAMPLE_YAML = """
 
 def run_cli(argv: Optional[List[str]] = None, devices: Optional[DeviceArg] = None) -> int:
     """Run one subcommand; `devices` are those the membership matrices are
-    split over (None: runtime.resolve_devices())."""
-    args = build_parser().parse_args(argv)
-    logging.basicConfig(
-        level=logging.DEBUG if args.verbose else logging.INFO,
-        format="[%(asctime)s %(levelname)s %(name)s] %(message)s",
-        stream=sys.stderr,
-    )
-    set_num_threads(args.threads)
+    split over (None: runtime.resolve_devices()). The whole of it is the
+    span `command`, the root of every span it opens."""
+    with span("command"):
+        return _run(argv, devices)
+
+
+def _run(argv: Optional[List[str]], devices: Optional[DeviceArg]) -> int:
+    with span("cli.parse"):
+        args = build_parser().parse_args(argv)
+        logging.basicConfig(
+            level=logging.DEBUG if args.verbose else logging.INFO,
+            format="[%(asctime)s %(levelname)s %(name)s] %(message)s",
+            stream=sys.stderr,
+        )
+        set_num_threads(args.threads)
     out = sys.stdout
     # a multi-process run joins its process group before the first device
     # touch; every rank runs every collective, rank 0 alone writes
@@ -513,26 +521,27 @@ def run_cli(argv: Optional[List[str]] = None, devices: Optional[DeviceArg] = Non
         out.write("\n")
         return 0
 
-    from .pipeline import convert_to_tasks, execute_pipeline
+    with span("cli.parse"):
+        from .pipeline import convert_to_tasks, execute_pipeline
 
-    shall_write_html = False
-    dry_run = False
-    json = False
-    if args.command == "report":
-        shall_write_html = True
-        dry_run = args.dry_run
-        json = args.json
-        if args.yaml_file is None:
-            out.write(EXAMPLE_YAML + "\n")
-            return 0
-        from .config import load_config_file
+        shall_write_html = False
+        dry_run = False
+        json = False
+        if args.command == "report":
+            shall_write_html = True
+            dry_run = args.dry_run
+            json = args.json
+            if args.yaml_file is None:
+                out.write(EXAMPLE_YAML + "\n")
+                return 0
+            from .config import load_config_file
 
-        instructions = load_config_file(args.yaml_file)
-    else:
-        instructions = get_instructions(args)
+            instructions = load_config_file(args.yaml_file)
+        else:
+            instructions = get_instructions(args)
 
-    tasks = convert_to_tasks(instructions)
-    log.info("%s", tasks)
+        tasks = convert_to_tasks(instructions)
+        log.info("%s", tasks)
     if dry_run:
         # one task per line, as panacus_tpu prints the plan (the reference
         # pretty-prints the task vector with {:#?}, src/lib.rs:213-217; an

@@ -21,7 +21,7 @@ import numpy as np
 log = logging.getLogger("panacus")
 
 # large-buffer parsing wants heap reuse on lazy-memory VMs
-from .runtime import configure_host_memory
+from .runtime import configure_host_memory, handoff, span
 
 configure_host_memory()
 
@@ -341,66 +341,67 @@ class GraphStorage:
         buf = np.frombuffer(data, dtype=np.uint8)
         self._buf = buf
 
-        from .native import scan_lines
+        from .native import classify_lines, scan_lines
         from .runtime import effective_threads
 
-        # the global tab index is only needed by the numpy fallback
-        # parsers; native field parsers (pt_s_spans / pt_index_edges /
-        # pt_tokenize) re-scan their own lines, so skip its ~8 bytes of
-        # writes per tab and materialize it lazily (_tabs property).
-        # (The lazy path re-runs the scan — acceptable: it only triggers
-        # for non-native fallbacks, e.g. non-integer node names, whose
-        # per-line numpy parsing dwarfs one extra threaded scan. With no
-        # native lib at all, scan_lines returns None and the flatnonzero
-        # fallback below fills both arrays in this one pass.)
-        scanned = scan_lines(buf, effective_threads(), want_tabs=False)
-        if scanned is not None:
-            nl, tabs = scanned
-        else:
-            nl = np.flatnonzero(buf == 10)
-            tabs = np.flatnonzero(buf == 9)
-        from .native import classify_lines
-
-        cls = classify_lines(buf, nl) if scanned is not None else None
-        if cls is not None:
-            # one C pass (~6 ops/line) instead of four full-width
-            # numpy temporaries
-            starts, ends, first = cls
-        else:
-            starts = np.empty(len(nl), dtype=np.int64)
-            if len(nl):
-                starts[0] = 0
-                starts[1:] = nl[:-1] + 1
-            ends = nl  # position of '\n'
-            # strip trailing '\r'
-            ends_stripped = ends - (buf[np.maximum(ends - 1, 0)] == 13)
-            nonempty = ends_stripped > starts
-            starts, ends = starts[nonempty], ends_stripped[nonempty]
-            first = buf[starts]
+        with span("index.scan", bytes=len(buf)) as sp:
+            # the global tab index is only needed by the numpy fallback
+            # parsers; native field parsers (pt_s_spans / pt_index_edges /
+            # pt_tokenize) re-scan their own lines, so skip its ~8 bytes of
+            # writes per tab and materialize it lazily (_tabs property).
+            # (The lazy path re-runs the scan — acceptable: it only triggers
+            # for non-native fallbacks, e.g. non-integer node names, whose
+            # per-line numpy parsing dwarfs one extra threaded scan. With no
+            # native lib at all, scan_lines returns None and the flatnonzero
+            # fallback below fills both arrays in this one pass.)
+            scanned = scan_lines(buf, effective_threads(), want_tabs=False)
+            if scanned is not None:
+                nl, tabs = scanned
+            else:
+                nl = np.flatnonzero(buf == 10)
+                tabs = np.flatnonzero(buf == 9)
+            cls = classify_lines(buf, nl) if scanned is not None else None
+            if cls is not None:
+                # one C pass (~6 ops/line) instead of four full-width
+                # numpy temporaries
+                starts, ends, first = cls
+            else:
+                starts = np.empty(len(nl), dtype=np.int64)
+                if len(nl):
+                    starts[0] = 0
+                    starts[1:] = nl[:-1] + 1
+                ends = nl  # position of '\n'
+                # strip trailing '\r'
+                ends_stripped = ends - (buf[np.maximum(ends - 1, 0)] == 13)
+                nonempty = ends_stripped > starts
+                starts, ends = starts[nonempty], ends_stripped[nonempty]
+                first = buf[starts]
+            sp.add(lines=len(starts))
         self._line_starts = starts
         self._line_ends = ends
         self._tabs_arr = tabs
         self._tabs_lock = threading.Lock()
         self._name_hash_lock = threading.Lock()
 
-        is_s = first == ord("S")
-        is_p = first == ord("P")
-        is_w = first == ord("W")
-        is_l = first == ord("L")
-
         log.info(
             "constructing indexes for node/edge IDs, node lengths, and P/W lines.."
         )
-        self._index_nodes(starts[is_s], ends[is_s])
+        with span("index.nodes") as sp:
+            is_s = first == ord("S")
+            self._index_nodes(starts[is_s], ends[is_s])
+            sp.add(nodes=self.node_count)
 
-        # paths/walks in file order
-        pw_mask = is_p | is_w
-        self._pw_starts = starts[pw_mask]
-        self._pw_ends = ends[pw_mask]
-        self._pw_is_walk = first[pw_mask] == ord("W")
-        self.path_segments: List[PathSegment] = []
-        self._pw_seq_spans: List[Tuple[int, int]] = []
-        self._index_paths()
+        with span("index.paths") as sp:
+            # paths/walks in file order
+            is_w = first == ord("W")
+            pw_mask = (first == ord("P")) | is_w
+            self._pw_starts = starts[pw_mask]
+            self._pw_ends = ends[pw_mask]
+            self._pw_is_walk = is_w[pw_mask]
+            self.path_segments: List[PathSegment] = []
+            self._pw_seq_spans: List[Tuple[int, int]] = []
+            self._index_paths()
+            sp.add(paths=len(self.path_segments))
 
         log.info(
             "found: %d paths/walks, %d nodes",
@@ -427,16 +428,21 @@ class GraphStorage:
             # accessor joins first (_ensure_edges).
             from concurrent.futures import ThreadPoolExecutor
 
-            ex = ThreadPoolExecutor(max_workers=1)
+            parent = handoff()  # the worker cannot see the profiler
+            with span("index.edges"):
+                is_l = first == ord("L")
+                ex = ThreadPoolExecutor(max_workers=1)
 
-            def _index_job(ls, le):
-                from .native import install_thread_allocator
+                def _index_job(ls, le):
+                    from .native import install_thread_allocator
 
-                install_thread_allocator()  # context-local numpy handler
-                return self._index_edges(ls, le)
+                    with span("edge_index", handoff=parent) as sp:
+                        install_thread_allocator()  # context-local numpy handler
+                        self._index_edges(ls, le)
+                        sp.add(edges=self._edge_count)
 
-            self._edge_future = ex.submit(_index_job, starts[is_l], ends[is_l])
-            ex.shutdown(wait=False)
+                self._edge_future = ex.submit(_index_job, starts[is_l], ends[is_l])
+                ex.shutdown(wait=False)
 
     @property
     def _tabs(self) -> np.ndarray:
@@ -464,7 +470,11 @@ class GraphStorage:
         f = self._edge_future
         if f is not None:
             self._edge_future = None
-            f.result()  # re-raises indexing errors at first edge use
+            if f.done():
+                f.result()  # re-raises indexing errors at first edge use
+            else:
+                with span("edge_index.wait"):
+                    f.result()
 
     @property
     def edge_count(self) -> int:
@@ -515,13 +525,14 @@ class GraphStorage:
         if self._edge_adj is None and self._edges_u is not None:
             from .native import build_edge_adj
 
-            self._edge_adj = build_edge_adj(
-                self._edges_u,
-                self._edges_o1,
-                self._edges_v,
-                self._edges_o2,
-                self.node_count,
-            )
+            with span("edge_index.adj"):
+                self._edge_adj = build_edge_adj(
+                    self._edges_u,
+                    self._edges_o1,
+                    self._edges_v,
+                    self._edges_o2,
+                    self.node_count,
+                )
         return self._edge_adj
 
     # -- nodes ----------------------------------------------------------------

@@ -45,7 +45,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..runtime import all_gather_cat, all_reduce_sum, comm_device, host_all_gather, world
+from ..runtime import all_gather_cat, all_reduce_sum, comm_device, host_all_gather, span, world
 from . import group_kernels, hist_kernels
 
 ITEM_ALIGN = 1 << 14
@@ -337,35 +337,37 @@ class MembershipStream:
     copies. Words never fed stay zero."""
 
     def __init__(self, n_items: int, n_groups: int, devices: DeviceArg):
-        self.engine = CountingEngine(n_items, n_groups, devices)
-        eng = self.engine
-        self._fed: set = set()
-        self._cuda = eng.devices[0].type == "cuda"
-        if self._cuda:
-            eng.shards = [
-                torch.zeros((eng.n_words, eng.shard_items), dtype=torch.int32, device=d)
-                for d in eng.devices
-            ]
-            self._copy_streams = {}  # one side stream per device
-            for d in eng.devices:
-                if d not in self._copy_streams:
-                    stream = torch.cuda.Stream(d)
-                    # the copies must not overtake the zero fills of M
-                    stream.wait_stream(torch.cuda.current_stream(d))
-                    self._copy_streams[d] = stream
-            self._host_rows: dict = {}  # word -> host tensor, alive until finalize
-            self._events: List[list] = [[] for _ in eng.devices]  # per shard
-        else:
-            self._M_host = np.zeros((eng.n_words, eng.n_items_pad), dtype=np.uint32)
+        with span("build.alloc"):
+            self.engine = CountingEngine(n_items, n_groups, devices)
+            eng = self.engine
+            self._fed: set = set()
+            self._cuda = eng.devices[0].type == "cuda"
+            if self._cuda:
+                eng.shards = [
+                    torch.zeros((eng.n_words, eng.shard_items), dtype=torch.int32, device=d)
+                    for d in eng.devices
+                ]
+                self._copy_streams = {}  # one side stream per device
+                for d in eng.devices:
+                    if d not in self._copy_streams:
+                        stream = torch.cuda.Stream(d)
+                        # the copies must not overtake the zero fills of M
+                        stream.wait_stream(torch.cuda.current_stream(d))
+                        self._copy_streams[d] = stream
+                self._host_rows: dict = {}  # word -> host tensor, alive until finalize
+                self._events: List[list] = [[] for _ in eng.devices]  # per shard
+            else:
+                self._M_host = np.zeros((eng.n_words, eng.n_items_pad), dtype=np.uint32)
 
     def host_row(self, word: int) -> np.ndarray:
         """A writable, zeroed uint32[n_items_pad] row for `word`."""
         if not self._cuda:
             return self._M_host[word]
         if word not in self._host_rows:
-            self._host_rows[word] = torch.zeros(
-                self.engine.n_items_pad, dtype=torch.int32, pin_memory=True
-            )
+            with span("build.alloc"):
+                self._host_rows[word] = torch.zeros(
+                    self.engine.n_items_pad, dtype=torch.int32, pin_memory=True
+                )
         return self._host_rows[word].numpy().view(np.uint32)
 
     def feed(self, word: int, row: np.ndarray) -> None:

@@ -18,7 +18,7 @@ from .broker import GraphBroker, GraphState, Req
 from .config import AnalysisParameter, AnalysisRun, Grouping
 from .ops.engine import DeviceArg
 from .report.sections import AnalysisSection
-from .runtime import phase_timer
+from .runtime import phase_timer, span
 
 log = logging.getLogger("panacus")
 
@@ -118,7 +118,9 @@ def execute_pipeline(
 ) -> None:
     """Apply the tasks in order against one broker on `devices` (M split
     over them), then write the JSON report, the HTML report or the last
-    analysis's table (reference: src/lib.rs:235-311)."""
+    analysis's table (reference: src/lib.rs:235-311). The table's
+    formatting and write are the span `cli.write`; the analysis's own
+    phase runs before it."""
     if not tasks:
         log.warning("No instructions supplied")
         return
@@ -159,5 +161,14 @@ def execute_pipeline(
         out.write(generate_report(report, "<Placeholder Filename>"))
         out.write("\n")
     elif isinstance(tasks[-1], AnalysisTask):
-        out.write(tasks[-1].analysis.generate_table(gb))
-        out.write("\n")
+        analysis = tasks[-1].analysis
+        analysis.prepare(gb)
+        with span("cli.write") as sp:
+            table = analysis.generate_table(gb)
+            out.write(table)
+            out.write("\n")
+            sp.add(bytes=len(table) + 1)
+    # the broker holds the graph, its item tables and the device matrices:
+    # release them here, inside the span, rather than at the return
+    with span("cli.release"):
+        del gb, report

@@ -1,5 +1,6 @@
 """Runtime settings of the port: host threads and memory, the torch devices
-of this process, the process group of a multi-process run, phase timing.
+of this process, the process group of a multi-process run, phase timing
+and spans.
 
 The host half (set_num_threads, effective_threads, configure_host_memory)
 is panacus_tpu/runtime.py's; torch is imported only where the devices or
@@ -16,11 +17,14 @@ the collectives below are the engine's and the ingest's.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import logging
 import os
 import sys
+import threading
 import time
 from datetime import timedelta
+from typing import List, NamedTuple, Optional
 
 log = logging.getLogger("panacus")
 
@@ -279,30 +283,180 @@ def host_all_gather(t):
     return parts
 
 
-class phase_timer:
-    """Wall-clock phase timing, logged at INFO as
-    "phase <name> done; time elapsed: <s>s" (record args: name, seconds).
-    The phase is also a torch.profiler scope of its name (record_function),
-    so a trace tells the phases apart; with no profiler active the scope
-    costs a few microseconds. Without torch loaded no profiler can be
-    active, and the phase only logs."""
+# -- spans --------------------------------------------------------------------
+#
+# A span is a named stretch of the program: a phase (phase_timer), a part of
+# one, or the L-line indexer's job on its worker thread. A span records only
+# while torch.profiler is active, which torch.autograd._profiler_enabled()
+# tells on the calling thread; otherwise it does nothing. The profiler is not
+# visible on a thread the program starts, so a span there records when the
+# code that handed it the work passed on `handoff()`. The records stay in
+# memory, in one buffer of SPAN_CAPACITY spans allocated on the first record;
+# spans that do not fit are counted, not kept. Times are time.time_ns(), the
+# clock of the profiler's host events. On a thread the profiler sees, a span
+# also opens a record_function of its name, so a trace shows it.
 
-    def __init__(self, name: str):
+SPAN_CAPACITY = 65536
+
+
+class SpanRecord(NamedTuple):
+    name: str
+    id: int
+    parent: Optional[int]  # the id of the span that caused it
+    command: int  # the id of the outermost span of its tree (cli's `command`)
+    thread: int  # threading.get_ident()
+    start_ns: int
+    end_ns: int
+    counts: dict
+
+
+_span_ids = itertools.count(1)
+_span_stacks = threading.local()  # the open spans of each thread
+_span_lock = threading.Lock()
+_span_capacity = SPAN_CAPACITY
+_span_buffer: Optional[list] = None
+_span_n = 0
+_span_dropped = 0
+_span_drop_ns = (0, 0)  # the first and the last dropped span's end
+
+
+def _open_spans() -> list:
+    stack = getattr(_span_stacks, "stack", None)
+    if stack is None:
+        stack = _span_stacks.stack = []
+    return stack
+
+
+def _profiler_sees() -> bool:
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd._profiler_enabled()
+
+
+def _keep(rec: SpanRecord) -> None:
+    global _span_buffer, _span_n, _span_dropped, _span_drop_ns
+    with _span_lock:
+        if _span_n < _span_capacity:
+            if _span_buffer is None:
+                _span_buffer = [None] * _span_capacity
+            _span_buffer[_span_n] = rec
+            _span_n += 1
+            return
+        _span_drop_ns = (_span_drop_ns[0] if _span_dropped else rec.end_ns, rec.end_ns)
+        _span_dropped += 1
+
+
+class span:
+    """A named span of the program, `with span(name, **counts) as sp:`.
+    `sp.add(**counts)` adds to its counts; `handoff` is what `handoff()`
+    gave the thread that handed this one its work."""
+
+    def __init__(self, name: str, handoff: Optional[tuple] = None, **counts):
         self.name = name
+        self.counts = counts
+        self._handoff = handoff
 
     def __enter__(self):
-        torch = sys.modules.get("torch")
-        self._scope = None
-        if torch is not None:
-            self._scope = torch.profiler.record_function(self.name)
+        seen = _profiler_sees()
+        self.on = seen or self._handoff is not None
+        if not self.on:
+            return self
+        stack = _open_spans()
+        if self._handoff is not None:
+            self._parent, command = self._handoff
+        elif stack:
+            self._parent, command = stack[-1].id, stack[-1].command
+        else:
+            self._parent, command = None, None
+        self.id = next(_span_ids)
+        self.command = self.id if command is None else command
+        stack.append(self)
+        self._scope = sys.modules["torch"].profiler.record_function(self.name) if seen else None
+        # the clock is read just before the twin stamps its start and its
+        # end: the op that stamps them lets go of the GIL, and waiting to
+        # take it back (behind the L-line indexer's thread) would otherwise
+        # fall between the two stamps
+        self._t0 = time.time_ns()
+        if seen:
             self._scope.__enter__()
-        self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        seconds = time.perf_counter() - self._t0
+        if not self.on:
+            return False
+        t1 = time.time_ns()
         if self._scope is not None:
             self._scope.__exit__(*exc)
+        _open_spans().pop()
+        _keep(SpanRecord(self.name, self.id, self._parent, self.command,
+                         threading.get_ident(), self._t0, t1, self.counts))
+        return False
+
+    def add(self, **counts) -> None:
+        if self.on:
+            for k, v in counts.items():
+                self.counts[k] = self.counts.get(k, 0) + v
+
+
+def handoff() -> Optional[tuple]:
+    """What a span on another thread needs to record as a child of this
+    thread's innermost open span: None while no profiler is active."""
+    if not _profiler_sees():
+        return None
+    stack = _open_spans()
+    return (stack[-1].id, stack[-1].command) if stack else (None, None)
+
+
+def add_counts(**counts) -> None:
+    """Add to the counts of this thread's innermost open span, if it records."""
+    stack = _open_spans()
+    if stack:
+        stack[-1].add(**counts)
+
+
+def spans(start_ns: Optional[int] = None, end_ns: Optional[int] = None) -> List[SpanRecord]:
+    """The recorded spans that lie within [start_ns, end_ns], in the order
+    they closed."""
+    lo = -1 if start_ns is None else start_ns
+    hi = float("inf") if end_ns is None else end_ns
+    with _span_lock:
+        kept = _span_buffer[:_span_n] if _span_buffer else []
+    return [r for r in kept if lo <= r.start_ns and r.end_ns <= hi]
+
+
+def spans_dropped(start_ns: Optional[int] = None, end_ns: Optional[int] = None) -> int:
+    """The spans that did not fit in the record; with a window, 0 when none
+    of them ended inside it. (Once the record is full every span drops, so
+    the count is that of every drop since.)"""
+    with _span_lock:
+        dropped, (first, last) = _span_dropped, _span_drop_ns
+    if not dropped:
+        return 0
+    if (start_ns is not None and last < start_ns) or (end_ns is not None and first > end_ns):
+        return 0
+    return dropped
+
+
+def reset_spans(capacity: int = SPAN_CAPACITY) -> None:
+    """Empty the record and give it `capacity` spans."""
+    global _span_capacity, _span_buffer, _span_n, _span_dropped, _span_drop_ns
+    with _span_lock:
+        _span_capacity = capacity
+        _span_buffer, _span_n, _span_dropped, _span_drop_ns = None, 0, 0, (0, 0)
+
+
+class phase_timer(span):
+    """A span that also logs its wall time at INFO as
+    "phase <name> done; time elapsed: <s>s" (record args: name, seconds),
+    whether or not a profiler is active."""
+
+    def __enter__(self):
+        super().__enter__()
+        self._p0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        seconds = time.perf_counter() - self._p0
+        super().__exit__(*exc)
         log.info("phase %s done; time elapsed: %.3fs", self.name, seconds)
         return False
 

@@ -16,9 +16,12 @@ ported: on an H100 host it lost or tied against this one at 3 and 32
 slabs for -c all, node, edge and gzip input (PERF.md), since every C
 stage here already runs on all host threads.
 
-Each slab's tokenize and pack run under profiler scopes ("tokenize slab
-i", "pack slab i"), so a torch.profiler trace shows where the build's
-time goes.
+Each slab's tokenize and pack are the spans `build.tokenize` and
+`build.pack` (runtime.span, counted by slab); the pack of edge slabs
+stashed while the indexer ran is `build.edge_pack`, the streams'
+finalize `build.finalize`. The build adds `edge_slabs` (edge rows packed)
+and `edge_slabs_repacked` (those packed from the stash) to the span it
+runs in (`abaci_by_total`).
 
 The build also returns each path's length in nodes and bp (for `info`),
 and the item tables that the coverage-table export reads: a
@@ -37,7 +40,6 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-from torch.profiler import record_function
 
 from .abacus import AbacusByTotal, path_order_groups
 from .gfa import GraphStorage, PathSegment, SlabbedItemTable
@@ -51,7 +53,7 @@ from .native import (
     pack_edges_adj,
 )
 from .ops.engine import Devices, MembershipStream
-from .runtime import effective_threads, world
+from .runtime import add_counts, effective_threads, span, world
 from .utils import CountType
 
 log = logging.getLogger("panacus")
@@ -269,6 +271,7 @@ def streamed_total_abaci(
     def consume_edge(slab, batch, packed=False):
         """Pack (unless the tokenizer already did, `packed`) and feed the
         edge row of one slab."""
+        nonlocal edge_slabs
         ids, orient, prefsum, _ = batch
         if edge_fused:
             edge_table.add_slab(slab.path_ids, ids, orient, prefsum)
@@ -277,6 +280,7 @@ def streamed_total_abaci(
             edge_table.add_slab(slab.path_ids, eids, e_pref)
         if slab.word < 0:
             return
+        edge_slabs += 1
         row = edge_stream.host_row(slab.word)
         if not edge_fused:
             _pack_row(eids, e_pref, slab.gidx_rel, row)
@@ -285,6 +289,19 @@ def streamed_total_abaci(
             pack_edges_adj(ids, orient, prefsum, slab.gidx_rel, graph.edge_adj(), row)
             row[0] = 0
         edge_stream.feed(slab.word, row)
+
+    def consume_stashed():
+        """The second pass: pack and feed the edge rows of the slabs
+        tokenized before the edge index was ready."""
+        nonlocal stashed, edge_slabs_repacked
+        if not stashed:
+            return
+        with span("build.edge_pack", slabs=len(stashed)):
+            before = edge_slabs
+            for s_prev, b_prev in stashed:
+                consume_edge(s_prev, b_prev)
+            edge_slabs_repacked += edge_slabs - before
+        stashed = []
 
     def edge_index_ready():
         f = getattr(graph, "_edge_future", None)
@@ -298,14 +315,13 @@ def streamed_total_abaci(
                 stream.discard()
 
     stashed = []
+    edge_slabs = edge_slabs_repacked = 0
     for i, slab in enumerate(slabs):
         if need_edge and edge_stream is None and edge_index_ready():
             # ready the edge stream BEFORE tokenizing so the edge pack
             # rides the same pass
             make_edge_stream()
-            for s_prev, b_prev in stashed:
-                consume_edge(s_prev, b_prev)
-            stashed = []
+            consume_stashed()
         # fused tokenize+pack: the C tokenizer ORs each path's ids into the
         # host rows while they are still cache-hot
         pack = {}
@@ -316,12 +332,12 @@ def streamed_total_abaci(
             pack["pack_edge_adj"] = graph.edge_adj()
         if pack:
             pack["pack_gbit"] = np.ascontiguousarray(slab.gidx_rel, dtype=np.int64)
-        with record_function(f"tokenize slab {i}"):
+        with span("build.tokenize", slab=i):
             batch = graph.all_path_item_runs(slab.path_ids, pack=pack or None)
         if batch is None:  # tokenizer bailed: let the classic path run
             bail()
             return None
-        with record_function(f"pack slab {i}"):
+        with span("build.pack", slab=i):
             if need_node:
                 # path lengths for node and bp runs only, as the classic
                 # itemizer fills them
@@ -339,26 +355,27 @@ def streamed_total_abaci(
     if need_edge:
         if edge_stream is None:  # indexer outlived tokenization: join
             make_edge_stream()
-        for s_prev, b_prev in stashed:
-            consume_edge(s_prev, b_prev)
+        consume_stashed()
+        add_counts(edge_slabs=edge_slabs, edge_slabs_repacked=edge_slabs_repacked)
 
-    node_engine = node_stream.finalize() if need_node else None
-    edge_engine = edge_stream.finalize() if need_edge else None
-    itemized = ItemizeResult(
-        item_tables=[
-            edge_table if ct == CountType.EDGE else node_table for ct in count_types
-        ],
-        exclude_tables=[None] * len(count_types),
-        subset_covered_bps=None,
-        paths_len=paths_len,
-    )
-    abaci: Dict[CountType, AbacusByTotal] = {}
-    for ct in count_types:
-        engine = edge_engine if ct == CountType.EDGE else node_engine
-        abaci[ct] = AbacusByTotal(ct, engine, groups, {}, graph)
-        log.info(
-            "abacus has %d path groups and %d countables",
-            n_groups,
-            engine.n_items,
+    with span("build.finalize"):
+        node_engine = node_stream.finalize() if need_node else None
+        edge_engine = edge_stream.finalize() if need_edge else None
+        itemized = ItemizeResult(
+            item_tables=[
+                edge_table if ct == CountType.EDGE else node_table for ct in count_types
+            ],
+            exclude_tables=[None] * len(count_types),
+            subset_covered_bps=None,
+            paths_len=paths_len,
         )
+        abaci: Dict[CountType, AbacusByTotal] = {}
+        for ct in count_types:
+            engine = edge_engine if ct == CountType.EDGE else node_engine
+            abaci[ct] = AbacusByTotal(ct, engine, groups, {}, graph)
+            log.info(
+                "abacus has %d path groups and %d countables",
+                n_groups,
+                engine.n_items,
+            )
     return abaci, itemized, path_order, groups

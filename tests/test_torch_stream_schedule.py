@@ -13,7 +13,8 @@ Graphs: testgraphs.make_graph at 3000 nodes with 90 paths (-H: 90 groups,
 member, for -c all, node only and edge only. A tokenizer that bails makes
 the build return None and discard its half-fed streams. A torch.profiler
 run of `histgrowth -c all` finds the phase scopes of runtime.phase_timer
-and the slab scopes. On the card, the 10-slab build's M equals the CPU's.
+and one `build.tokenize` and one `build.pack` scope a slab. On the card,
+the 10-slab build's M equals the CPU's.
 """
 
 from __future__ import annotations
@@ -210,8 +211,8 @@ def test_bail_then_classic_cli_equals_streamed(graphs, monkeypatch, capsys):
 
 def test_profiler_finds_phase_and_slab_scopes(graphs, monkeypatch, capsys):
     """A torch.profiler run of a CPU `histgrowth -c all`: the phase scopes
-    of phase_timer and the tokenize and pack scopes of every slab, on the
-    thread of `abaci_by_total`."""
+    of phase_timer and the `build.tokenize` and `build.pack` scopes of
+    every slab, on the thread of `abaci_by_total`."""
     from torch.profiler import ProfilerActivity, profile
 
     monkeypatch.setenv("PANACUS_TORCH_DEVICE", "cpu")
@@ -224,9 +225,9 @@ def test_profiler_finds_phase_and_slab_scopes(graphs, monkeypatch, capsys):
         threads.setdefault(e.name, set()).add(e.thread)
     for phase in ("index", "abaci_by_total", "hists", "growth"):
         assert phase in threads, sorted(threads)
-    for i in range(10):
-        for scope in (f"tokenize slab {i}", f"pack slab {i}"):
-            assert threads.get(scope) == threads["abaci_by_total"], scope
+    for scope in ("build.tokenize", "build.pack"):
+        assert threads.get(scope) == threads["abaci_by_total"], scope
+        assert sum(e.name == scope for e in prof.events()) == 10, scope
 
 
 @pytest.mark.cuda
