@@ -8,9 +8,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU or more:
 Phases, one or more lines each on stdout:
 
 1. env: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, and the nvcc builds of csrc/hist.cu, csrc/group.cu and
-   csrc/probe.cu (one nvcc each, started together) with their ptxas
-   summaries.
+   versions, and the nvcc builds of csrc/hist.cu, csrc/group.cu,
+   csrc/probe.cu and csrc/parse.cu (one nvcc each, started together) with
+   their ptxas summaries.
 2. kernels: each kernel (pt_fused_hist, pt_coverage, pt_ordered_growth,
    pt_similarity) against its plain PyTorch version on the card at the
    shapes of the paths below and beyond, exact int64 equality, median
@@ -22,7 +22,12 @@ Phases, one or more lines each on stdout:
    pt_similarity, beside one float64 torch.matmul of the unpacked P
    against P * W (library_ms, the yardstick; the port never calls it).
    pt_ordered_growth also runs past 65,534 groups (70,000 groups, its
-   31-plane tier), exact against its plain version.
+   31-plane tier), exact against its plain version. pt_parse_pack runs on
+   1024 random P and W step lists between bytes of other fields (the
+   many-slab graph's path count), its M, every path's steps and bp and
+   its error slot exact against its plain version (numpy on the host,
+   parse_pack_ref), and with one byte of a list made bad: the error slot
+   names that list in both.
 3. main path: `histgrowth -c all -H -q 0,0.5,1.0 -l 0,1,2` through
    panacus_torch's CLI on cuda, on the panacus_torch.testgraphs.make_graph
    graph at its default size (900k nodes, 3.6M edges, 90 haplotype groups,
@@ -37,14 +42,18 @@ Phases, one or more lines each on stdout:
    -l 1,1,2` with -c bp and -c edge, and `similarity -H` with -c node and
    -c bp, on cuda. Launch counts are reset just before these four runs and
    read just after: pt_ordered_growth must run at least 3 times per ordered
-   run and pt_similarity at least once per similarity run. Each TSV must
+   run and pt_similarity at least once per similarity run; the builds that
+   count no edges (every run but -c edge) parse their step lists on the
+   card, one pt_parse_pack a build, and the -c edge run launches none. Each TSV must
    equal the port's run on the CPU; a small ordered run and a small
    coverage table must equal numpy oracles.
 4b. path kernels: the arguments that phases 3 and 4 handed
    pt_fused_hist (the unmasked edge pass), pt_ordered_growth (the three
-   thresholds of ordered-histgrowth -c edge) and pt_similarity
-   (similarity -c node), captured during those runs: each kernel against its plain version on them, exact, timed by
-   events and by slope, beside its bound.
+   thresholds of ordered-histgrowth -c edge), pt_similarity (similarity
+   -c node) and pt_parse_pack (the build of similarity -c node: every step
+   list of the graph, as phase 9's -c node builds hand it), captured
+   during those runs: each kernel against its plain version on them,
+   exact, timed by events and by slope, beside its bound.
 5. probe: the raw-read control and the hist-formulation probes
    (csrc/probe.cu: pt_xor_fold, pt_word_fold, pt_limb_hist), every route
    (panacus_torch.probe.ROUTES) against its plain version on the card on
@@ -121,7 +130,8 @@ Phases, one or more lines each on stdout:
    (1024 groups, 32 slabs; `-q 0,1.0 -l 0,2`, see FRONT_QL). Each TSV
    must equal the port's CPU run of the same command, and each run must
    launch pt_fused_hist (counted from 0 for each run) through the
-   streamed build. It prints the median walls, MB/s on the uncompressed
+   streamed build, and pt_parse_pack once where it counts no edges (node,
+   gz_node) and never where it does. It prints the median walls, MB/s on the uncompressed
    bytes, the phases index and abaci_by_total, the launches and the gz
    inflate route (libdeflate or zlib); then one warm `-c all` under
    torch.profiler: the phase scopes it finds, the device's busy time and
@@ -177,6 +187,7 @@ SOURCE = {
     "pt_xor_fold": "panacus_torch/csrc/probe.cu",
     "pt_word_fold": "panacus_torch/csrc/probe.cu",
     "pt_limb_hist": "panacus_torch/csrc/probe.cu",
+    "pt_parse_pack": "panacus_torch/csrc/parse.cu",
 }
 REPLACES = {
     "pt_fused_hist": "panacus_tpu/ops/pallas_kernels.py:199",
@@ -192,6 +203,7 @@ REPLACES = {
         "scripts/kernel_probe.py:153 (coarse), :197 (fh2), :249 (fhm); "
         "scripts/kernel_interleave.py:165 (_fh2)"
     ),
+    "pt_parse_pack": "none (panacus_tpu parses the step lists on the host)",
 }
 # published peaks of one H100 SXM (dense): HBM bytes/s, int8 tensor-core
 # operations/s, and 32-bit operations/s outside the tensor cores (the table's
@@ -292,6 +304,7 @@ MAIN_SHAPE = 1  # the largest M the main path hands the kernels
 
 def phase_kernels(dev):
     """Kernel vs plain version at each shape; returns per-kernel results."""
+    import numpy as np
     import torch
 
     from panacus_torch.kernel_times import copies, event_ms, random_m, slope_ms
@@ -365,7 +378,106 @@ def phase_kernels(dev):
                     _bytes=nbytes,
                 )
         del M, W, got_h, want_h, got_c, want_c
+    text, descs, n_spans = parse_inputs(np.random.default_rng(1), 1024, 2000)
+    text, descs = text.to(dev), descs.to(dev)
+    lens = torch.randint(1, 17, (PARSE_ITEMS + 1,), dtype=torch.int32, device=dev, generator=g)
+    args = (text, descs, lens, PARSE_ITEMS, n_spans, 3)
+    res["pt_parse_pack"] = check_parse("1024 random step lists", args, flush)
+    bad = text.clone()
+    span = int(descs[n_spans // 2, 2])
+    bad[int(descs[n_spans // 2, 0]) + 1] = ord("x")
+    check_parse("1024 random step lists, one byte bad", (bad,) + args[1:], flush, bad_span=span)
+    del text, descs, lens, bad
     return res
+
+
+PARSE_ITEMS = 634_000  # node ids of the random step lists: the hg configuration's nodes
+
+
+def parse_inputs(rng, n_lists, max_tokens):
+    """(text, descs, n_spans) on the host: n_lists good P and W step lists
+    of up to max_tokens ids of 1 to 6 digits, in a random span order, each
+    after a few bytes of other fields (',', '>', digits and orientations
+    among them)."""
+    import numpy as np
+    import torch
+
+    data, descs = [], []
+    at = 0
+    for span in rng.permutation(n_lists).tolist():
+        k = int(rng.integers(1, max_tokens + 1))
+        ids = np.minimum(rng.integers(1, 10 ** rng.integers(1, 7, size=k)), PARSE_ITEMS)
+        orient = rng.integers(0, 2, size=k)
+        walk = bool(rng.integers(0, 2))
+        if walk:
+            body = "".join(f"{'><'[o]}{i}" for i, o in zip(ids.tolist(), orient.tolist()))
+        else:
+            body = ",".join(f"{i}{'+-'[o]}" for i, o in zip(ids.tolist(), orient.tolist()))
+        gap = "\tP\t9,>1+<\t"[: int(rng.integers(0, 12))]
+        at += len(gap)
+        word, bit = int(rng.integers(-1, 3)), int(rng.integers(0, 32))
+        descs.append([at, at + len(body), span, bit | int(walk) << 8 | word << 16])
+        data.append(gap + body)
+        at += len(body)
+    text = np.frombuffer(("".join(data) + "\t*\n").encode(), dtype=np.uint8).copy()
+    return torch.from_numpy(text), torch.tensor(descs, dtype=torch.int64), n_lists
+
+
+def check_parse(label, args, flush, bad_span=None):
+    """pt_parse_pack on args = (text, descs, node_lens, n_items, n_spans,
+    n_words) on the card against parse_pack_ref on host copies: M, each
+    span's steps and bp and the error slot equal (the slot naming bad_span,
+    or no span); then, where no token is bad, timed by events and by slope
+    beside its bound. Returns its numbers for the kernels line."""
+    import torch
+
+    from panacus_torch.kernel_times import copies, event_ms, slope_ms
+    from panacus_torch.ops import parse_kernels as pk
+
+    text, descs, lens, n_items, n_spans, n_words = args
+
+    def outputs(device):
+        M = torch.zeros((n_words, n_items + 1), dtype=torch.int32, device=device)
+        acc = torch.zeros(1 + 2 * n_spans, dtype=torch.int64, device=device)
+        acc[0] = int(pk.ERR_NONE)
+        return M, acc
+
+    M, acc = outputs(text.device)
+    pk.parse_pack(text, descs, M, lens, n_items, acc)
+    hM, hacc = outputs("cpu")
+    host = [t.cpu() for t in (text, descs, lens)]
+    t0 = time.perf_counter()
+    pk.parse_pack(host[0], host[1], hM, host[2], n_items, hacc)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    want_err = int(pk.ERR_NONE) if bad_span is None else bad_span
+    if int(hacc[0]) != want_err or int(acc[0]) != want_err:
+        fail(f"pt_parse_pack {label}: error slot {int(acc[0])}, plain {int(hacc[0])}, not {want_err}")
+    if bad_span is not None:
+        print(f"[kernels] pt_parse_pack {label}: the kernel's and the plain error slot "
+              f"name span {bad_span}")
+        return None
+    if not torch.equal(acc.cpu(), hacc) or not torch.equal(M.cpu(), hM):
+        fail(f"pt_parse_pack {label}: kernel != plain (M or a path's steps or bp)")
+    ms = event_ms(lambda: pk.parse_pack(text, descs, M, lens, n_items, acc), 10, flush)
+    slope = slope_ms([lambda s=s: pk.parse_pack(s[0], s[1], M, lens, n_items, acc)
+                      for s in copies((text, descs))])
+    # read the text, the descriptors and node_lens once, write M and acc
+    # once; a compare a byte
+    nbytes = (text.numel() + descs.numel() * 8 + lens.numel() * 4 + M.numel() * 4
+              + acc.numel() * 8)
+    bound_ms, bound_by = bound(nbytes, text.numel(), SCALAR_OPS)
+    steps = int(hacc[1 : 1 + n_spans].sum())
+    print(
+        f"[kernels] pt_parse_pack {label} ({text.numel() / 1e6:.2f} MB of text, "
+        f"{descs.shape[0]} lists, {steps} steps, {n_words} x {n_items + 1} M): exact; "
+        f"kernel {ms:.4f} ms by events ({text.numel() / ms / 1e6:.1f} GB/s of text), "
+        f"{slope:.4f} ms by slope; plain {plain_ms:.1f} ms (numpy on the host); bound "
+        f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, {bound_by}), {bound_ms / ms:.3f} of it "
+        f"by events, {bound_ms / slope:.3f} by slope; library: none"
+    )
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, slope_ms=slope, at=f"{text.numel()} bytes, {descs.shape[0]} lists",
+                _bytes=nbytes)
 
 
 # (label, n_words, n_items_pad, n_groups, weights, (quorum, c_min) pairs,
@@ -604,6 +716,8 @@ def phase_main_path(dev, single):
     )
     if counts_unmasked["pt_fused_hist"] < 2:
         fail("histgrowth -c all launched pt_fused_hist fewer than 2 times")
+    if launches["pt_parse_pack"]:
+        fail("histgrowth -c all counts edges and must not parse its step lists on the card")
     launches = {name: launches[name] for name in ("pt_fused_hist", "pt_coverage")}
     for name, n in launches.items():
         if n < 1:
@@ -689,12 +803,13 @@ def phase_group_path(dev, single):
     outs = []
     for what, argv in runs:
         before = dict(kernels.launches)
-        with capture() as calls:  # the arguments of each call, for phase 4b
+        with capture() as calls, capture_parse() as parse_calls:  # for phase 4b
             out, ph, wall = drive(argv, "cuda")
         if what == "ordered-histgrowth -c edge":
             ordered_edge = calls["pt_ordered_growth"]
         if what == "similarity -c node":
             similarity_node = calls["pt_similarity"]
+            parse_node = parse_calls
         delta = {k: kernels.launches[k] - before[k] for k in kernels.launches}
         if what in SHARDED_RUNS:
             single[what] = (argv, table(out)[0], delta, per_matrix(calls), wall)
@@ -713,6 +828,10 @@ def phase_group_path(dev, single):
             fail(f"{what} launched pt_ordered_growth fewer than 3 times")
         if what.startswith("similarity") and delta["pt_similarity"] < 1:
             fail(f"{what} did not launch pt_similarity")
+        # one parse a build that counts no edges (an ordered run builds twice)
+        want_parse = 0 if what.endswith("-c edge") else 2 if what.startswith("ordered") else 1
+        if delta["pt_parse_pack"] != want_parse:
+            fail(f"{what} launched pt_parse_pack {delta['pt_parse_pack']} times, not {want_parse}")
         if what.startswith("ordered"):
             body = check_ordered_table(out, tg.N_PATHS, 3, what)
         else:
@@ -749,15 +868,36 @@ def phase_group_path(dev, single):
     if not np.array_equal(got, counts[:, 1:].T):
         fail("small table -c node -S != numpy oracle")
     print("[group] small table -c node -S on cuda == cpu == numpy oracle")
-    return launches, ordered_edge, similarity_node
+    return launches, ordered_edge, similarity_node, parse_node
 
 
-def phase_path_kernels(dev, edge_hist, ordered_edge, similarity_node, res):
-    """pt_fused_hist, pt_ordered_growth and pt_similarity on the arguments
-    that phases 3 and 4 handed them (the path's own edge M, weights and
-    thresholds; the node M and its weights): exact against their plain
-    versions, timed by events and by slope; adds each one's numbers under
-    "path" in res."""
+@contextlib.contextmanager
+def capture_parse():
+    """Record the arguments that the streamed build hands
+    parse_kernels.parse_pack while the block runs, as (text, descs,
+    node_lens, n_items, n_spans, n_words); the calls go through as before."""
+    from panacus_torch.ops import parse_kernels
+
+    calls = []
+    parse_pack = parse_kernels.parse_pack
+
+    def spy(text, descs, M, node_lens, n_items, acc):
+        calls.append((text, descs, node_lens, n_items, (len(acc) - 1) // 2, M.shape[0]))
+        return parse_pack(text, descs, M, node_lens, n_items, acc)
+
+    parse_kernels.parse_pack = spy
+    try:
+        yield calls
+    finally:
+        parse_kernels.parse_pack = parse_pack
+
+
+def phase_path_kernels(dev, edge_hist, ordered_edge, similarity_node, parse_node, res):
+    """pt_fused_hist, pt_ordered_growth, pt_similarity and pt_parse_pack on
+    the arguments that phases 3 and 4 handed them (the path's own edge M,
+    weights and thresholds; the node M and its weights; every step list of
+    the graph): exact against their plain versions, timed by events and by
+    slope; adds each one's numbers under "path" in res."""
     import torch
 
     from panacus_torch.kernel_times import ORDERED_QC, copies, event_ms, slope_ms
@@ -823,6 +963,10 @@ def phase_path_kernels(dev, edge_hist, ordered_edge, similarity_node, res):
     )
     res["pt_similarity"]["path"] = {"ms": ms, "slope_ms": slope, "bound_ms": bound_ms,
                                     "at": f"{M.shape[0]}x{M.shape[1]}, {planes} planes"}
+    if len(parse_node) != 1:
+        fail(f"the build of similarity -c node made {len(parse_node)} parse calls, not 1")
+    got = check_parse("path: similarity -c node's step lists", parse_node[0], flush)
+    res["pt_parse_pack"]["path"] = {k: got[k] for k in ("ms", "slope_ms", "bound_ms", "at")}
 
 
 # phase 6: the report path, a report of two runs on the graph of phase 3
@@ -1158,8 +1302,14 @@ def counted(fn):
 
 
 def check_scaled(what, k, launches, one):
-    """Each kernel launched k times as often on k shards as on one."""
-    bad = {n: (launches[n], one[n]) for n in one if launches[n] != k * one[n]}
+    """Each kernel launched k times as often on k shards as on one, but for
+    the step-list parse, which only a build on one device runs
+    (stream._parse_on_device): it must not run on k > 1 shards."""
+    bad = {
+        n: (launches[n], one[n])
+        for n in one
+        if launches[n] != (0 if n == "pt_parse_pack" and k > 1 else k * one[n])
+    }
     if bad:
         fail(f"{what}: launches on {k} shards are not {k} x one device's: {bad}")
 
@@ -1675,6 +1825,8 @@ def phase_front_end():
                     fail(f"{what}: TSV on cuda differs from the port's run on cpu")
                 if launches["pt_fused_hist"] < 1:
                     fail(f"{what} did not launch pt_fused_hist")
+                if launches["pt_parse_pack"] != (name in ("node", "gz_node")):
+                    fail(f"{what} launched pt_parse_pack {launches['pt_parse_pack']} times")
                 if not any(l.startswith("streamed membership build:") for l in log_.lines):
                     fail(f"{what} did not take the streamed build")
                 if log_.warnings:
@@ -1694,7 +1846,8 @@ def phase_front_end():
             print(
                 f"[front]   {name:7s}: median wall {med:.4f} s "
                 f"({mb / med:.1f} MB/s), index {idx:.4f} s, abaci_by_total {build:.4f} s, "
-                f"pt_fused_hist {rs[0][2]['pt_fused_hist']} a run; walls "
+                f"pt_fused_hist {rs[0][2]['pt_fused_hist']}, pt_parse_pack "
+                f"{rs[0][2]['pt_parse_pack']} a run; walls "
                 + " ".join(f"{w:.4f}" for w in walls)
             )
         route = [l for l in runs["gz_node"][0][3].lines if l.startswith("gz ingest:")]
@@ -1798,11 +1951,11 @@ def main() -> int:
     res.update(phase_group_kernels(dev))
     single = {}  # the one-card runs that phase 7 repeats on shards
     launches, edge_hist = phase_main_path(dev, single)
-    group_launches, ordered_edge, similarity_node = phase_group_path(dev, single)
-    for name in ("pt_ordered_growth", "pt_similarity"):
+    group_launches, ordered_edge, similarity_node, parse_node = phase_group_path(dev, single)
+    for name in ("pt_ordered_growth", "pt_similarity", "pt_parse_pack"):
         launches[name] = group_launches[name]
-    phase_path_kernels(dev, edge_hist, ordered_edge, similarity_node, res)
-    del edge_hist, ordered_edge, similarity_node
+    phase_path_kernels(dev, edge_hist, ordered_edge, similarity_node, parse_node, res)
+    del edge_hist, ordered_edge, similarity_node, parse_node
     probe_res, probe_launches, read_bps = phase_probe(dev, smi)
     res.update(probe_res)
     launches.update(probe_launches)

@@ -715,14 +715,10 @@ class GraphStorage:
         from .native import tokenize_batch
         from .runtime import effective_threads
 
-        spans = np.asarray(self._pw_seq_spans, dtype=np.int64)
-        walk = self._pw_is_walk
-        if path_indices is not None:
-            spans = spans[path_indices]
-            walk = walk[path_indices]
-            if not len(spans):
-                z = np.zeros(0, np.int64)
-                return z, np.zeros(0, np.uint8), np.zeros(1, np.int64), z
+        starts, ends, walk = self.step_lists(path_indices)
+        if path_indices is not None and not len(starts):
+            z = np.zeros(0, np.int64)
+            return z, np.zeros(0, np.uint8), np.zeros(1, np.int64), z
         kwargs = dict(
             mode=1,
             n_items=self.node_count,
@@ -742,9 +738,33 @@ class GraphStorage:
             )
         if pack is not None:
             kwargs.update(pack)
-        return tokenize_batch(
-            self._buf, spans[:, 0], spans[:, 1], walk, **kwargs
+        return tokenize_batch(self._buf, starts, ends, walk, **kwargs)
+
+    def step_lists(
+        self, path_indices: Optional[np.ndarray] = None
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(starts, ends, walk): the byte spans in the buffer (`buf`) of the
+        step lists of every P/W line, or of `path_indices` in that order,
+        int64 and contiguous, and whether each is a W line (uint8)."""
+        spans = np.asarray(self._pw_seq_spans, dtype=np.int64).reshape(-1, 2)
+        walk = self._pw_is_walk
+        if path_indices is not None:
+            spans, walk = spans[path_indices], walk[path_indices]
+        return (
+            np.ascontiguousarray(spans[:, 0]),
+            np.ascontiguousarray(spans[:, 1]),
+            np.ascontiguousarray(walk, dtype=np.uint8),
         )
+
+    @property
+    def buf(self) -> np.ndarray:
+        """The GFA's bytes (uint8), which `step_lists` indexes."""
+        return self._buf
+
+    @property
+    def identity_names(self) -> bool:
+        """Node names are the integers 1..n in S-line order."""
+        return self._int_name_mode == "identity"
 
     def name_hash(self):
         """Native open-addressing hash over the S-line name spans (string-

@@ -52,6 +52,8 @@ def _build_lib() -> Optional[ctypes.CDLL]:
         "native",
     )
     so_path = os.path.join(cache_dir, f"gfa_scan-{tag}.so")
+    # one temporary name a process: test workers may build at once
+    tmp = f"{so_path}.{os.getpid()}.tmp"
     if not os.path.exists(so_path):
         os.makedirs(cache_dir, exist_ok=True)
         cc = os.environ.get("CC", "cc")
@@ -64,7 +66,7 @@ def _build_lib() -> Optional[ctypes.CDLL]:
             "-fvisibility=hidden",
             _SRC,
             "-o",
-            so_path + ".tmp",
+            tmp,
         ]
         # compiled on demand on the machine that runs it, so -march=native
         # is safe; retry portable if the toolchain rejects it
@@ -77,7 +79,7 @@ def _build_lib() -> Optional[ctypes.CDLL]:
                     capture_output=True,
                     timeout=120,
                 )
-                os.replace(so_path + ".tmp", so_path)
+                os.replace(tmp, so_path)
                 built = True
                 break
             except Exception as e:

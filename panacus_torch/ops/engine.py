@@ -397,6 +397,29 @@ class MembershipStream:
                 ev.record(stream)
             self._events[s].append(ev)
 
+    def device_rows(self) -> Tuple[torch.Tensor, Optional["torch.cuda.Stream"]]:
+        """The zeroed M of a one-shard stream, for a kernel that ORs rows into
+        it in place, and the stream such writes go on (None on the CPU, where
+        the tensor shares the host matrix). `written` then names the words."""
+        eng = self.engine
+        if len(eng.devices) != 1:
+            raise ValueError("device_rows takes a stream on one device")
+        if not self._cuda:
+            return torch.from_numpy(self._M_host.view(np.int32)), None
+        return eng.shards[0], self._copy_streams[eng.devices[0]]
+
+    def written(self, words) -> None:
+        """`words` were written through device_rows: finalize waits for the
+        work queued so far on its stream, as for the rows fed."""
+        for word in words:
+            if not 0 <= word < self.engine.n_words or word in self._fed:
+                raise ValueError(f"word {word} out of range or written twice")
+            self._fed.add(word)
+        if self._cuda:
+            ev = torch.cuda.Event()
+            ev.record(self._copy_streams[self.engine.devices[0]])
+            self._events[0].append(ev)
+
     def discard(self) -> None:
         """Drop a stream that will not be finalized (its build gave up):
         wait for the copies already issued, so that neither M nor a pinned

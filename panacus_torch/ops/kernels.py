@@ -32,6 +32,7 @@ SOURCES = {
     "hist": os.path.join(CSRC, "hist.cu"),
     "group": os.path.join(CSRC, "group.cu"),
     "probe": os.path.join(CSRC, "probe.cu"),
+    "parse": os.path.join(CSRC, "parse.cu"),
 }
 BUILD_DIR = os.path.join(
     os.path.dirname(_PKG_DIR), "build", "panacus_torch_kernels"
@@ -64,6 +65,12 @@ _SIGNATURES = {
     ),
     # (M, n_words, n_items_pad, W, n_planes, part, part_elems, out, stream)
     "pt_similarity": ("group", [_P, _I64, _I64, _P, _I32, _P, _I64, _P, _P]),
+    # (chunk, n_bytes, descs, n_descs, M, row_stride, node_lens, n_items,
+    #  acc, n_spans, stream)
+    "pt_parse_pack": (
+        "parse",
+        [_P, _I64, _P, _I32, _P, _I64, _P, _I64, _P, _I64, _P],
+    ),
     # (M, n_words, n_items, W, salt, scratch, stream)
     "pt_xor_fold": ("probe", [_P, _I64, _I64, _P, _I32, _P, _P]),
     # (M, n_words, n_items, W, salt, op, mma_cov, out, stream)

@@ -29,17 +29,33 @@ SlabbedItemTable of node runs and, for edges, a LazyEdgeTable that derives
 edge ids from the node runs on demand. Both only keep references to the
 slabs the tokenizer has already produced.
 
+A build that counts no edges, on one CUDA device, of a graph whose
+node names are 1..n (identity names) parses its step lists on the card
+instead (`_parse_on_device`): the edge pack needs the host's ids and
+orientations in the tokenizer's pass, the node rows do not, so the two
+routes share no parsing. The GFA's bytes from the first step list to the
+last go to the card in one copy (span `build.stage` with its `bytes`) and
+one launch parses every slab's lists into M's rows on the copy stream
+(ops/parse_kernels.parse_pack, span `build.parse`); one copy back gives
+every path's length (span `build.wait`). The node table is then a
+LazyNodeTable, which parses again on the host only for a reader of the ids
+(the coverage-table export). A malformed step list makes this route
+return None too. The build adds `node_slabs` and `node_slabs_on_device` to
+`abaci_by_total`.
+
 Applicability: unmasked runs (no subset/exclude coordinates) on graphs the
 native batch tokenizer handles. Masked runs take the classic itemizer.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .abacus import AbacusByTotal, path_order_groups
 from .gfa import GraphStorage, PathSegment, SlabbedItemTable
@@ -52,6 +68,7 @@ from .native import (
     lookup_edges_adj,
     pack_edges_adj,
 )
+from .ops import parse_kernels
 from .ops.engine import Devices, MembershipStream
 from .runtime import add_counts, effective_threads, span, world
 from .utils import CountType
@@ -211,6 +228,88 @@ class LazyEdgeTable:
         return self._prefsum
 
 
+class LazyNodeTable:
+    """Node ItemTable of a build that parsed the step lists on the card: the
+    host keeps no ids, so a reader's are parsed again on the host, one path
+    by GraphStorage.path_item_run, every path at once (`items`, `prefsum`)
+    by one all_path_item_runs. Interface of SlabbedItemTable."""
+
+    def __init__(self, graph: GraphStorage, num_paths: int):
+        self.num_paths = num_paths
+        self._graph = graph
+        self._items: Optional[np.ndarray] = None
+        self._prefsum: Optional[np.ndarray] = None
+
+    def path_slice(self, path_idx: int) -> np.ndarray:
+        if self._items is not None:
+            return self._items[self._prefsum[path_idx] : self._prefsum[path_idx + 1]]
+        return self._graph.path_item_run(path_idx)[0]
+
+    def _materialize(self) -> None:
+        self._items, _, self._prefsum, _ = self._graph.all_path_item_runs()
+
+    @property
+    def items(self) -> np.ndarray:
+        if self._items is None:
+            self._materialize()
+        return self._items
+
+    @property
+    def prefsum(self) -> np.ndarray:
+        if self._prefsum is None:
+            self._materialize()
+        return self._prefsum
+
+
+def _parse_on_device(graph: GraphStorage, count_types: List[CountType], devices: Devices) -> bool:
+    """The node rows are parsed on the card: no edges counted, one CUDA
+    device, identity node names."""
+    return (
+        len(devices) == 1
+        and devices[0].type == "cuda"
+        and CountType.EDGE not in count_types
+        and graph.identity_names
+    )
+
+
+def _node_rows_on_device(
+    graph: GraphStorage,
+    slabs: List[_Slab],
+    node_stream: MembershipStream,
+    paths_len: Dict[PathSegment, Tuple[int, int]],
+) -> bool:
+    """Build node_stream's rows from the slabs' raw step lists, one upload
+    and one pt_parse_pack, and fill paths_len; False where a step list is
+    malformed (the caller discards the stream)."""
+    order = np.concatenate([s.path_ids for s in slabs])
+    starts, ends, walk = graph.step_lists(order)
+    words = np.concatenate([np.full(len(s.path_ids), s.word, np.int32) for s in slabs])
+    bits = np.concatenate([s.gidx_rel for s in slabs])
+    lo, hi, descs = parse_kernels.descriptors(starts, ends, walk, words, bits)
+    n_spans, n_items = len(order), graph.node_count
+    M, stream = node_stream.device_rows()
+    with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+        lens = torch.from_numpy(graph.node_lens.view(np.int32)).to(M.device, non_blocking=True)
+        acc = torch.zeros(1 + 2 * n_spans, dtype=torch.int64, device=M.device)
+        acc[0] = int(parse_kernels.ERR_NONE)
+        if len(descs):
+            with span("build.stage") as sp:
+                text = parse_kernels.upload(graph.buf[lo:hi], M.device)
+                sp.add(bytes=hi - lo)
+            with span("build.parse"):
+                d = torch.from_numpy(descs).to(M.device, non_blocking=True)
+                parse_kernels.parse_pack(text, d, M, lens, n_items, acc)
+        with span("build.wait"):
+            got = acc.cpu().numpy()
+    if got[0] != parse_kernels.ERR_NONE:
+        return False
+    segs = graph.path_segments
+    for j, pid in enumerate(order):
+        paths_len[segs[int(pid)]] = (int(got[1 + j]), int(got[1 + n_spans + j]))
+    node_stream.written([s.word for s in slabs if s.word >= 0])
+    return True
+
+
 def streamed_total_abaci(
     graph: GraphStorage,
     mask: GraphMask,
@@ -237,12 +336,16 @@ def streamed_total_abaci(
     need_edge = CountType.EDGE in count_types
     need_node = any(ct != CountType.EDGE for ct in count_types)
 
+    on_device = need_node and _parse_on_device(graph, count_types, devices)
+
     node_stream = (
         MembershipStream(graph.number_of_items(CountType.NODE), n_groups, devices)
         if need_node
         else None
     )
-    node_table = SlabbedItemTable(n_paths) if need_node else None
+    node_table = None
+    if need_node:
+        node_table = LazyNodeTable(graph, n_paths) if on_device else SlabbedItemTable(n_paths)
     edge_stream = None
     edge_table = None
     edge_fused = False
@@ -250,11 +353,12 @@ def streamed_total_abaci(
     segs = graph.path_segments
 
     log.info(
-        "streamed membership build: %d slabs, %d groups, counts %s, on %s",
+        "streamed membership build: %d slabs, %d groups, counts %s, on %s%s",
         len(slabs),
         n_groups,
         count_types,
         ", ".join(map(str, devices)),
+        ", step lists parsed on the device" if on_device else "",
     )
 
     def make_edge_stream():
@@ -314,9 +418,15 @@ def streamed_total_abaci(
             if stream is not None:
                 stream.discard()
 
+    host_slabs = slabs
+    if on_device:
+        if not _node_rows_on_device(graph, slabs, node_stream, paths_len):
+            bail()
+            return None
+        host_slabs = []  # no edges: nothing is left for the host's pass
     stashed = []
     edge_slabs = edge_slabs_repacked = 0
-    for i, slab in enumerate(slabs):
+    for i, slab in enumerate(host_slabs):
         if need_edge and edge_stream is None and edge_index_ready():
             # ready the edge stream BEFORE tokenizing so the edge pack
             # rides the same pass
@@ -357,6 +467,8 @@ def streamed_total_abaci(
             make_edge_stream()
         consume_stashed()
         add_counts(edge_slabs=edge_slabs, edge_slabs_repacked=edge_slabs_repacked)
+    if need_node:
+        add_counts(node_slabs=len(slabs), node_slabs_on_device=len(slabs) if on_device else 0)
 
     with span("build.finalize"):
         node_engine = node_stream.finalize() if need_node else None

@@ -1,0 +1,357 @@
+"""The streamed build's device route on the CPU: the plain version of
+pt_parse_pack (ops/parse_kernels.parse_pack_ref) and the route's host logic.
+
+The plain version is held against the host tokenizer (native
+pt_tokenize_pack, mode 1 with the fused node pack) on the synthetic step lists
+of tests/parse_cases.py: P and W lists, seven- and eight-digit ids, ids 0
+and n_items + 1, stray bytes, missing orientations, between bytes of other
+fields. The descriptor rows (parse_kernels.descriptors) are checked to name
+every non-empty list once, in the text's order. The route itself runs
+here with `_parse_on_device` forced (it engages only on a CUDA device), so
+parse_pack takes the plain version: on make_graph and the dryrun graph
+(also with its P and W lines among its S lines), with the group file that
+leaves most paths in no group, its M, paths_len and node table equal the
+host tokenizer's build; a malformed step list makes it return None; the
+TSVs of histgrowth -c node and -c bp, info and table equal panacus_tpu's.
+The kernel against this plain version is in test_torch_parse_card.py.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import pytest
+import torch
+
+import parse_cases as pc
+from panacus_torch import native, stream, testgraphs
+from panacus_torch.cli import run_cli as torch_cli
+from panacus_torch.ops import parse_kernels
+from panacus_torch.ops.engine import MembershipStream
+from test_torch_slice import graphs  # noqa: F401 (fixture)
+
+
+def _spans_of(pieces):
+    """The whole step lists the pieces cut: {span: (bytes, walk)}."""
+    out = {}
+    for text, span, _, _, walk in pieces:
+        if span in out:
+            prev, _ = out[span]
+            out[span] = (prev + (b"" if walk else b",") + text, walk)
+        else:
+            out[span] = (text, walk)
+    return out
+
+
+def _host_tokenizer(pieces):
+    """The host tokenizer's row (one word) and per-span counts and bp over
+    the pieces' step lists, or None where it bails."""
+    spans = _spans_of(pieces)
+    order = sorted(spans)
+    buf = b"".join(spans[s][0] + b"\n" for s in order)
+    ends = np.cumsum([len(spans[s][0]) + 1 for s in order]) - 1
+    starts = ends - [len(spans[s][0]) for s in order]
+    bits = {s: b for _, s, _, b, _ in pieces}
+    lens = pc.node_lens().numpy().view(np.uint32)
+    row = np.zeros(pc.N_ITEMS + 7, dtype=np.uint32)
+    got = native.tokenize_batch(
+        np.frombuffer(buf, dtype=np.uint8), starts, ends,
+        np.array([spans[s][1] for s in order], dtype=np.uint8), 1, pc.N_ITEMS,
+        node_lens=lens, pack_gbit=np.array([bits[s] for s in order]),
+        pack_node_row=row, n_threads=1,
+    )
+    if got is None:
+        return None
+    _, _, prefsum, bp = got
+    return row, dict(zip(order, np.diff(prefsum))), dict(zip(order, bp.astype(np.int64)))
+
+
+@pytest.mark.parametrize("name", sorted(pc.CASES))
+def test_plain_version_equals_the_host_tokenizer(name):
+    pieces, good = pc.CASES[name]
+    for p in pieces:  # one word, as the host packs one row
+        assert p[2] in (-1, 0, 1)
+    one_word = [(t, s, 0, b, w) for t, s, _, b, w in pieces]
+    text, descs = pc.layout(one_word)
+    n = pc.n_spans(pieces)
+    M, acc = pc.outputs(n)
+    parse_kernels.parse_pack(text, descs, M, pc.node_lens(), pc.N_ITEMS, acc)
+    want = _host_tokenizer(pieces)
+    assert (want is not None) == good
+    if not good:
+        bad = [s for t, s, _, _, w in pieces if parse_kernels.list_ids(np.frombuffer(t, np.uint8), w, pc.N_ITEMS) is None]
+        assert acc[0] == min(bad)
+        return
+    row, counts, bp = want
+    assert acc[0] == parse_kernels.ERR_NONE
+    np.testing.assert_array_equal(M[0].numpy().view(np.uint32), row)
+    assert not M[1].any()
+    for s in range(n):
+        assert acc[1 + s] == counts.get(s, 0)
+        assert acc[1 + n + s] == bp.get(s, 0)
+
+
+def test_plain_version_on_random_pieces():
+    rng = np.random.default_rng(11)
+    pieces = pc.random_pieces(rng, 40, 200)
+    text, descs = pc.layout(pieces)
+    M, acc = pc.outputs(len(pieces))
+    parse_kernels.parse_pack(text, descs, M, pc.node_lens(), pc.N_ITEMS, acc)
+    assert acc[0] == parse_kernels.ERR_NONE
+    want = np.zeros((pc.N_WORDS, pc.N_ITEMS + 7), dtype=np.uint32)
+    lens = pc.node_lens().numpy()
+    for text, span, word, bit, walk in pieces:
+        ids = parse_kernels.list_ids(np.frombuffer(text, np.uint8), walk, pc.N_ITEMS)
+        assert ids is not None
+        if word >= 0:
+            want[word, ids] |= np.uint32(1 << bit)
+        assert acc[1 + span] == len(ids)
+        assert acc[1 + len(pieces) + span] == lens[ids].sum()
+    np.testing.assert_array_equal(M.numpy().view(np.uint32), want)
+
+
+# -- the descriptor rows ------------------------------------------------------
+
+
+LISTS = {
+    # name: step lists of one graph's paths, in path order, as the GFA holds them
+    "p_and_w": [b"1+,22-,333+,4444-", b">5<66>777<8888", b"9+", b">1", b"1234+,1+"],
+    "empty_lists": [b"", b"1+,2+", b"", b">3", b""],
+    "one_list": [b"7-"],
+    "every_list_empty": [b"", b""],
+}
+
+
+@pytest.mark.parametrize("name", sorted(LISTS))
+@pytest.mark.parametrize("order", ["file", "reversed", "shuffled"])
+def test_descriptors_name_every_list_once(name, order):
+    """Whatever order the slabs take the paths in, the rows follow the
+    text, name each non-empty list once under its span with its word, bit
+    and kind, and the plain parse of buf[lo:hi] gives each list's tokens."""
+    texts = LISTS[name]
+    gfa, starts = b"S\t1\tA\n", []
+    for t in texts:
+        starts.append(len(gfa) + 4)
+        gfa += b"P\tx\t" + t + b"\t*\n"
+    buf = np.frombuffer(gfa, np.uint8)
+    starts = np.array(starts, dtype=np.int64)
+    ends = starts + [len(t) for t in texts]
+    n = len(texts)
+    perm = {"file": np.arange(n), "reversed": np.arange(n)[::-1],
+            "shuffled": np.random.default_rng(3).permutation(n)}[order]
+    walk = np.array([t.startswith(b">") for t in texts], dtype=np.uint8)[perm]
+    words = (np.arange(n, dtype=np.int32) % 3 - 1)[perm]
+    bits = (np.arange(n, dtype=np.int32) * 7 % 32)[perm]
+    lo, hi, descs = parse_kernels.descriptors(starts[perm], ends[perm], walk, words, bits)
+    full = [k for k in range(n) if texts[perm[k]]]
+    assert descs.dtype == np.int64 and descs.shape == (len(full), 4)
+    if not full:
+        assert (lo, hi) == (0, 0)
+        return
+    assert lo == min(starts[perm[k]] for k in full) and hi == max(ends[perm[k]] for k in full)
+    assert (np.diff(descs[:, 0]) > 0).all()
+    assert sorted(descs[:, 2]) == full
+    for begin, end, span, meta in descs.tolist():
+        assert buf[lo + begin : lo + end].tobytes() == texts[perm[span]]
+        assert (meta >> 16, meta & 31, meta >> 8 & 1) == (words[span], bits[span], walk[span])
+    n_items = 9999
+    M = torch.zeros((2, n_items + 1), dtype=torch.int32)
+    acc = torch.zeros(1 + 2 * n, dtype=torch.int64)
+    acc[0] = int(parse_kernels.ERR_NONE)
+    parse_kernels.parse_pack(
+        parse_kernels.upload(buf[lo:hi], torch.device("cpu")), torch.from_numpy(descs),
+        M, torch.ones(n_items + 1, dtype=torch.int32), n_items, acc,
+    )
+    assert acc[0] == parse_kernels.ERR_NONE
+    want_M = np.zeros((2, n_items + 1), dtype=np.uint32)
+    for k in range(n):
+        ids = parse_kernels.list_ids(np.frombuffer(texts[perm[k]], np.uint8), bool(walk[k]), n_items)
+        assert acc[1 + k] == acc[1 + n + k] == len(ids)
+        if words[k] >= 0:
+            want_M[words[k], ids] |= np.uint32(1 << int(bits[k]))
+    np.testing.assert_array_equal(M.numpy().view(np.uint32), want_M)
+
+
+def test_descriptors_refuse_overlapping_lists():
+    z = np.zeros(2, np.int32)
+    with pytest.raises(ValueError, match="overlap"):
+        parse_kernels.descriptors(np.array([0, 3]), np.array([5, 8]), z.astype(np.uint8), z, z)
+
+
+def test_upload_reads_a_read_only_map_without_a_warning(tmp_path, recwarn):
+    import mmap
+
+    f = tmp_path / "b"
+    f.write_bytes(b"1+,2+\n")
+    with open(f, "rb") as fh:
+        mm = mmap.mmap(fh.fileno(), 0, prot=mmap.PROT_READ)
+    buf = np.frombuffer(mm, dtype=np.uint8)
+    text = parse_kernels.upload(buf[0:5], torch.device("cpu"))
+    assert bytes(text.numpy()) == b"1+,2+"
+    assert not recwarn.list
+    del text, buf
+    mm.close()
+
+
+# -- the route on the CPU ------------------------------------------------------
+
+
+def _build(gfa, counts, forced, groups=None):
+    from panacus_torch.gfa import GraphStorage
+    from panacus_torch.mask import GraphMask, GraphMaskParameters
+    from panacus_torch.utils import CountType
+
+    cts = [CountType[c.upper()] for c in counts]
+    g = GraphStorage(str(gfa), index_edges=False)
+    params = GraphMaskParameters(groupby=str(groups)) if groups else GraphMaskParameters(groupby_haplotype=True)
+    mask = GraphMask.from_datamgr(params, g)
+    with pytest.MonkeyPatch.context() as mp:
+        if forced:
+            mp.setattr(stream, "_parse_on_device", lambda *a: True)
+        return g, stream.streamed_total_abaci(g, mask, cts, (torch.device("cpu"),))
+
+
+def _same_build(g, host, dev):
+    assert host is not None and dev is not None
+    for ct in host[0]:
+        assert torch.equal(host[0][ct].engine.shards[0], dev[0][ct].engine.shards[0]), ct
+    assert list(host[1].paths_len.items()) == list(dev[1].paths_len.items())
+    assert host[2:] == dev[2:]
+    h, d = host[1].item_tables[0], dev[1].item_tables[0]
+    assert isinstance(d, stream.LazyNodeTable)
+    for p in range(len(g.path_segments)):
+        np.testing.assert_array_equal(h.path_slice(p), d.path_slice(p))
+    np.testing.assert_array_equal(h.items, d.items)
+    np.testing.assert_array_equal(h.prefsum, d.prefsum)
+
+
+def _interleaved(graphs, tmp_path):  # noqa: F811
+    """The dryrun graph with its P and W lines moved among its S lines, so
+    that the bytes between step lists hold whole other lines."""
+    lines = (graphs / "dryrun.gfa").read_text().splitlines()
+    paths = [l for l in lines if l[:2] in ("P\t", "W\t")]
+    rest = [l for l in lines if l[:2] not in ("P\t", "W\t")]
+    segs = [k for k, l in enumerate(rest) if l.startswith("S\t")]
+    for j, line in enumerate(paths):
+        rest.insert(segs[(j * len(segs)) // len(paths)] + 1 + j, line)
+    out = tmp_path / "interleaved.gfa"
+    out.write_text("\n".join(rest) + "\n")
+    return out
+
+
+@pytest.mark.parametrize("layout", ["as_written", "paths_among_segments"])
+@pytest.mark.parametrize("counts", [("node",), ("bp",), ("node", "bp")], ids="+".join)
+@pytest.mark.parametrize("grouping", ["haplotype", "group_file"])
+def test_route_equals_the_host_tokenizer(graphs, tmp_path, layout, counts, grouping):  # noqa: F811
+    """The dryrun graph (P and W lines): M, paths_len, path order and node
+    table of the route (the plain parse) equal the host tokenizer's, with
+    the group file's trailing slab of paths in no group, also where other
+    lines lie between the step lists."""
+    groups = graphs / "groups.tsv" if grouping == "group_file" else None
+    gfa = _interleaved(graphs, tmp_path) if layout == "paths_among_segments" else graphs / "dryrun.gfa"
+    g, host = _build(gfa, counts, False, groups)
+    _, dev = _build(gfa, counts, True, groups)
+    _same_build(g, host, dev)
+
+
+def test_route_on_make_graph_and_its_counts(tmp_path):
+    """make_graph at 3000 nodes and 90 paths (3 slabs): the build's counts
+    say every slab went to the device, and a profiled build has one
+    `build.stage` with the bytes from the first step list to the last."""
+    from panacus_torch import runtime
+    from torch.profiler import ProfilerActivity, profile
+
+    gfa = tmp_path / "g.gfa"
+    testgraphs.make_graph(str(gfa), n_nodes=3000, n_paths=90)
+    g, host = _build(gfa, ("node",), False)
+    runtime.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with runtime.span("abaci_by_total"):
+            _, dev = _build(gfa, ("node",), True)
+    _same_build(g, host, dev)
+    got = runtime.spans()
+    staged = [r for r in got if r.name == "build.stage"]
+    spans = np.asarray(g._pw_seq_spans)
+    assert [r.counts for r in staged] == [{"bytes": int(spans[:, 1].max() - spans[:, 0].min())}]
+    assert [r.name for r in got].count("build.parse") == 1
+    assert [r.name for r in got].count("build.wait") == 1
+    top_rec = [r for r in got if r.name == "abaci_by_total"][0]
+    assert top_rec.counts == {"node_slabs": 3, "node_slabs_on_device": 3}
+    runtime.reset_spans()
+
+
+def test_route_engages_only_where_it_applies(graphs):  # noqa: F811
+    from panacus_torch.gfa import GraphStorage
+    from panacus_torch.utils import CountType
+
+    g = GraphStorage(str(graphs / "dryrun.gfa"), index_edges=False)
+    card, cpu = (torch.device("cuda", 0),), (torch.device("cpu"),)
+    node, edge = [CountType.NODE, CountType.BP], [CountType.NODE, CountType.EDGE]
+    assert stream._parse_on_device(g, node, card)
+    assert not stream._parse_on_device(g, edge, card)
+    assert not stream._parse_on_device(g, node, cpu)
+    assert not stream._parse_on_device(g, node, card * 2)
+    g._int_name_mode = "sorted"
+    assert not stream._parse_on_device(g, node, card)
+
+
+def _malformed(graphs, tmp_path):  # noqa: F811
+    """The dryrun graph with a ',' after the last step of its first P line:
+    the host tokenizer and the device parse refuse it, the classic path's
+    one-line parse takes it."""
+    lines = (graphs / "dryrun.gfa").read_text().splitlines()
+    i = next(k for k, l in enumerate(lines) if l.startswith("P\t"))
+    f = lines[i].split("\t")
+    f[2] += ","
+    lines[i] = "\t".join(f)
+    bad = tmp_path / "bad.gfa"
+    bad.write_text("\n".join(lines) + "\n")
+    return bad
+
+
+def test_malformed_step_list_returns_none(graphs, tmp_path, monkeypatch):  # noqa: F811
+    discarded = []
+    real = MembershipStream.discard
+    monkeypatch.setattr(MembershipStream, "discard", lambda self: (discarded.append(self), real(self)))
+    _, res = _build(_malformed(graphs, tmp_path), ("node",), True)
+    assert res is None
+    assert len(discarded) == 1 and discarded[0]._M_host is None
+
+
+def _body(out: str) -> str:
+    return "".join(l for l in out.splitlines(True) if not l.startswith("#"))
+
+
+CLI = [
+    ["histgrowth", "-c", "node", "-H", "-q", "0,0.5,1", "-l", "0,1,2"],
+    ["histgrowth", "-c", "bp", "-S", "-a"],
+    ["histgrowth", "-c", "node", "-g", "{groups}"],
+    ["info", "-S"],
+    ["table", "-S"],
+    ["table", "-c", "bp", "-g", "{groups}"],
+]
+
+
+@pytest.mark.parametrize("graph", ["dryrun", "bench", "bad"])
+@pytest.mark.parametrize("argv", CLI, ids=[" ".join(a) for a in CLI])
+def test_tsv_equals_jax(graphs, tmp_path, argv, graph, capsys, monkeypatch, caplog):  # noqa: F811
+    """The CLI with the route forced on the CPU gives panacus_tpu's TSV; a
+    malformed step list gives it through the classic path."""
+    pytest.importorskip("jax")
+    from panacus_tpu.cli import run_cli as jax_cli
+
+    gfa = _malformed(graphs, tmp_path) if graph == "bad" else graphs / f"{graph}.gfa"
+    argv = [a.replace("{groups}", str(graphs / "groups.tsv")) for a in argv] + [str(gfa)]
+    monkeypatch.setenv("PANACUS_TORCH_DEVICE", "cpu")
+    monkeypatch.setattr(stream, "_parse_on_device", lambda *a: True)
+    with caplog.at_level(logging.INFO, logger="panacus"):
+        caplog.clear()
+        assert torch_cli(argv) == 0
+    got = _body(capsys.readouterr().out)
+    parsed = "step lists parsed on the device" in caplog.text
+    assert parsed == ("streamed membership build" in caplog.text)
+    if graph == "bad":
+        assert parsed
+    assert jax_cli(argv) == 0
+    assert _body(capsys.readouterr().out) == got

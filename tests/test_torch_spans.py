@@ -138,7 +138,12 @@ def test_a_traced_command_records_every_span(gfa, monkeypatch):
     assert one("index.nodes") == {"nodes": 3000}
     assert one("index.paths") == {"paths": 300}
     assert one("edge_index")["edges"] > 0
-    assert one("abaci_by_total") == {"edge_slabs": N_SLABS, "edge_slabs_repacked": N_SLABS}
+    assert one("abaci_by_total") == {
+        "edge_slabs": N_SLABS,
+        "edge_slabs_repacked": N_SLABS,
+        "node_slabs": N_SLABS,
+        "node_slabs_on_device": 0,  # -c all: the node rows are packed on the host
+    }
     assert one("build.edge_pack") == {"slabs": N_SLABS}
     assert one("cli.write") == {"bytes": len(text)}
     for name in ("build.tokenize", "build.pack"):
