@@ -2,6 +2,11 @@
 
     python3 benchmark/generate.py CONFIG_JSON SEED OUT_DIR
 
+A configuration that names a `"writer"` is written by writers/<writer>.py,
+whose `write_graph(cfg, seed, path, threads=0)` writes the graph and returns
+its facts as this module's does (it may import benchmark.generate for the
+helpers). Without the key, this module's own writer, below, writes it.
+
 Integer node names 1..n_nodes in S-line order. Each node belongs to one of
 the configuration's `node_classes`, drawn with its `share`; a class gives
 the node's segment length (uniform over `segment_bp` [lo, hi], random ACGT)
@@ -23,6 +28,7 @@ path. numpy only.
 from __future__ import annotations
 
 import hashlib
+import importlib.util
 import json
 import os
 import sys
@@ -34,6 +40,8 @@ import numpy as np
 
 GEN_VERSION = 3  # bump when the bytes for a given configuration and seed change
 KEEP = 8  # graphs of a configuration kept in OUT_DIR
+HERE = os.path.dirname(os.path.abspath(__file__))
+WRITERS = os.path.join(HERE, "writers")
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -157,6 +165,20 @@ def write_graph(cfg: dict, seed: int, path: str, threads: int = 0) -> dict:
     }
 
 
+def writer(cfg: dict):
+    """The write_graph of the configuration: its writer's, or this module's."""
+    name = cfg.get("writer")
+    if name is None:
+        return write_graph
+    if not isinstance(name, str) or not name.isidentifier():
+        raise ValueError(f"no graph writer {name!r}")
+    spec = importlib.util.spec_from_file_location(
+        f"benchmark_writer_{name}", os.path.join(WRITERS, name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.write_graph
+
+
 def graph_path(config_path: str, seed: int, out_dir: str) -> str:
     """The cache path of the graph of this configuration file and seed."""
     with open(config_path, "rb") as f:
@@ -174,7 +196,7 @@ def ensure_graph(config_path: str, seed: int, out_dir: str) -> str:
     gfa = graph_path(config_path, seed, out_dir)
     if not os.path.exists(gfa + ".json"):
         t0 = time.perf_counter()
-        facts = write_graph(cfg, seed, gfa + ".tmp")
+        facts = writer(cfg)(cfg, seed, gfa + ".tmp")
         os.replace(gfa + ".tmp", gfa)
         with open(gfa + ".json", "w") as f:
             json.dump(facts, f)
@@ -196,6 +218,7 @@ def ensure_graph(config_path: str, seed: int, out_dir: str) -> str:
 
 
 if __name__ == "__main__":
+    sys.path.insert(0, os.path.dirname(HERE))  # a writer imports benchmark.generate
     if len(sys.argv) != 4:
         sys.exit(__doc__.split("\n\n")[1])
     print(ensure_graph(sys.argv[1], int(sys.argv[2]), sys.argv[3]))

@@ -4,16 +4,17 @@ commands, the comparison with the reference, and the result line.
 A cell (BENCHMARK.json `workloads`) names a configuration and a traffic mix,
 each a file of its own: configs/<config>.json (the graph's shape, read by
 generate.py) and traffic/<traffic>.json (one panacus argv, {gfa} in the
-place of the graph). The window is a closed loop: one
+place of the graph, and optionally the name of its reference module,
+`"reference"`; `tables` without it). The window is a closed loop: one
 `panacus_torch.cli.run_cli(argv, devices)` after the other, stdout of each
 into a TSV of its own, until `seconds` have passed; the command running at
 the close completes and counts. Every command's TSV is then compared with
-the reference's table (reference/tables.py) under the limits of
-limits/<cell>.json. End-to-end metrics come from the host clock (`setup_s`
-is process start to the window less the making of the inputs, which the
-program's set-up has no part in and which a kept graph skips); per-layer
-metrics from metrics/<metric>.py, each a `read(run)` that returns a number
-or None.
+the table of the traffic's reference module (reference/<module>.py) under
+the limits of limits/<cell>.json. End-to-end metrics come from the host
+clock (`setup_s` is process start to the window less the making of the
+inputs, which the program's set-up has no part in and which a kept graph
+skips); per-layer metrics from metrics/<metric>.py, each a `read(run)` that
+returns a number or None.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import hashlib
+import importlib
 import importlib.util
 import json
 import logging
@@ -33,9 +35,9 @@ import sys
 import tempfile
 import time
 from dataclasses import dataclass, field
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
-from .reference import tables
 from .trace import WINDOW, Trace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -54,6 +56,24 @@ def load_module(path: str):
     return mod
 
 
+def reference_module(name: str) -> ModuleType:
+    """benchmark/reference/<name>.py, the plain reference of a traffic mix.
+    It provides:
+
+    - parse_command(argv): the flags it takes; any other raises;
+    - shape(argv, facts): the work of one command, for kernels/<kernel>.py;
+    - reference_tables(argv, dtype=None): the expected table of the argv's GFA,
+      exact, or (the control) computed in `dtype`;
+    - write_tsv(table): the table as the program writes it;
+    - compare(text, want): its own named numbers for one written table;
+    - COMBINE: {number: "sum" or "max"}, how each combines over commands;
+    - controls(argv, want): {control: its written table}, the controls that
+      readings.py holds against the limits."""
+    if not name.isidentifier():
+        raise ValueError(f"no reference module {name!r}")
+    return importlib.import_module(f"{__package__}.reference.{name}")
+
+
 @dataclass
 class Cell:
     name: str
@@ -61,6 +81,10 @@ class Cell:
     traffic: dict
     chips: int = 1
     spec: dict = field(default_factory=dict)  # BENCHMARK.json
+
+    @property
+    def reference(self) -> ModuleType:
+        return reference_module(self.traffic.get("reference", "tables"))
 
     @classmethod
     def load(cls, name: str, root: str = ROOT) -> "Cell":
@@ -114,7 +138,7 @@ class Command:
     tsv: str
     route: str  # the membership builds' route: "streamed" when every build streamed
     error: Optional[str] = None
-    numbers: Dict[str, float] = field(default_factory=dict)  # tables.compare's
+    numbers: Dict[str, float] = field(default_factory=dict)  # the reference's compare
 
 
 class PhaseSpans(logging.Handler):
@@ -210,16 +234,9 @@ class Run:
         return 1e3 * statistics.fmean(hits) if hits else None
 
     def shape(self) -> dict:
-        """The work of one command, from the argv and the graph's facts."""
-        cmd = tables.parse_command(self.inputs.argv)
-        groups = {"sample": "samples", "haplotype": "haplotypes", "path": "path_names"}
-        return {
-            "counts": ("node", "bp", "edge") if cmd.count == "all" else (cmd.count,),
-            "n_groups": len(self.inputs.facts[groups[cmd.grouping]]),
-            "n_nodes": self.inputs.facts["n_nodes"],
-            "n_edges": self.inputs.facts["n_edges"],
-            "n_thresholds": len(tables.thresholds(cmd)),
-        }
+        """The work of one command, from the argv and the graph's facts, as
+        the cell's reference module reads them."""
+        return self.cell.reference.shape(self.inputs.argv, self.inputs.facts)
 
     def roofline(self, kernel: str) -> Optional[float]:
         """% of the least time by bytes (kernels/<kernel>.py's count, each
@@ -243,12 +260,12 @@ def read_metric(name: str, run: Run) -> Optional[float]:
     return load_module(os.path.join(HERE, "metrics", name + ".py")).read(run)
 
 
-def compare_outputs(commands: List[Command], want: tables.Table) -> Dict[str, float]:
-    """The numbers of tables.compare over every command (each distinct TSV
-    read once): layout_off and cells_off summed, growth_gap the largest;
-    `errors` counts the commands that raised. Each command keeps its own
-    numbers."""
-    out = {"errors": 0, "layout_off": 0, "cells_off": 0, "growth_gap": 0.0}
+def compare_outputs(commands: List[Command], ref: ModuleType, want) -> Dict[str, float]:
+    """The numbers of `ref.compare` over every command (each distinct TSV
+    read once), each summed or the largest as `ref.COMBINE` says; `errors`
+    counts the commands that raised. Each command keeps its own numbers."""
+    out: Dict[str, float] = {"errors": 0}
+    out.update({k: 0 if how == "sum" else 0.0 for k, how in ref.COMBINE.items()})
     seen: Dict[str, Dict[str, float]] = {}
     for c in commands:
         if c.error is not None:
@@ -258,11 +275,10 @@ def compare_outputs(commands: List[Command], want: tables.Table) -> Dict[str, fl
             data = f.read()
         key = hashlib.sha256(data).hexdigest()
         if key not in seen:
-            seen[key] = tables.compare(data.decode(), want)
+            seen[key] = ref.compare(data.decode(), want)
         r = seen[key]
-        out["layout_off"] += r["layout_off"]
-        out["cells_off"] += r["cells_off"]
-        out["growth_gap"] = max(out["growth_gap"], r["growth_gap"])
+        for k, how in ref.COMBINE.items():
+            out[k] = out[k] + r[k] if how == "sum" else max(out[k], r[k])
         c.numbers = r
     return out
 
@@ -393,12 +409,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, devices, t_proc
             raise SystemExit(f"modules of JAX or the JAX package are loaded: {', '.join(found)}")
 
         t_ref = time.perf_counter()
-        want = tables.reference_tables(inputs.argv)
-        numbers = compare_outputs(commands, want)
+        ref = cell.reference
+        want = ref.reference_tables(inputs.argv)
+        numbers = compare_outputs(commands, ref, want)
         t_ref = time.perf_counter() - t_ref
         limits = cell.limits()
-        if "growth" not in {h[0] for h in want.headers}:
-            numbers.pop("growth_gap")
         checks = {k: {"value": v, "limit": limits[k]} for k, v in numbers.items()}
         correct = all(v <= limits[k] for k, v in numbers.items())
         failed = sum(command_failed(c, limits) for c in commands)

@@ -1,13 +1,14 @@
 """The readings that the limits of limits/<cell>.json are set from: the
 compared numbers of the program's runs (the lower readings) and of the
-control, the reference computed in float32 in the program's place (the upper
-readings), for many seeds in one process.
+controls of the cell's reference module (the upper readings: for
+histgrowth, the reference computed in float32 in the program's place), for
+many seeds in one process.
 
     python3 benchmark/readings.py --cells A,B --seeds 1,2,3 --seconds 3 [--control 3]
 
 For each seed and cell: the cell's inputs at its own size, a short window of
 its traffic on the first card, every TSV against the reference; then, for
-the first `--control` seeds, the control's table against the same
+the first `--control` seeds, each control's table against the same
 reference. One JSON line per seed and cell on stdout. The benchmark's runs
 do not run this.
 """
@@ -22,12 +23,9 @@ import sys
 import tempfile
 import time
 
-import numpy as np
-
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from benchmark import harness  # noqa: E402
-from benchmark.reference import tables  # noqa: E402
 
 
 def main(argv=None) -> int:
@@ -53,14 +51,15 @@ def main(argv=None) -> int:
                 inputs = harness.prepare_inputs(cell, seed)
                 cmds = harness.run_commands(cli.run_cli, inputs.argv, devices, args.seconds, work)
                 t1 = time.perf_counter()
-                want = tables.reference_tables(inputs.argv)
-                program = harness.compare_outputs(cmds, want)
+                ref = cell.reference
+                want = ref.reference_tables(inputs.argv)
+                program = harness.compare_outputs(cmds, ref, want)
                 t2 = time.perf_counter()
                 line = {"cell": name, "seed": seed, "commands": len(cmds), "program": program,
                         "reference_s": t2 - t1, "run_s": t1 - t0}
                 if i < args.control:
-                    ctl = tables.reference_tables(inputs.argv, np.float32)
-                    line["control"] = tables.compare(tables.write_tsv(ctl), want)
+                    line["control"] = {k: ref.compare(text, want)
+                                       for k, text in ref.controls(inputs.argv, want).items()}
                     line["control_s"] = time.perf_counter() - t2
                 print(json.dumps(line), flush=True)
             finally:

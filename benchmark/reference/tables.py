@@ -1,4 +1,5 @@
-"""The tables a command should write, and the comparison with what it wrote.
+"""The tables a command should write, and the comparison with what it wrote:
+the reference module of the histgrowth traffic (the harness's default).
 
 A command is a `histgrowth` argv as panacus takes it. Its table has four
 header rows (panacus, count, coverage, quorum) and a column a growth curve;
@@ -12,6 +13,9 @@ is a comment.
 - growth_gap: the largest distance of an exact growth value from the unit
   interval [cell, cell + 1) of its floored cell (0 when every floor is the
   exact one).
+
+Over the commands of a window the first two are summed, growth_gap is the
+largest (COMBINE). The control is the table computed in float32.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from .gfa import Graph, read_gfa
 
 GROUPINGS = {"-S": "sample", "--groupby-sample": "sample", "-H": "haplotype",
              "--groupby-haplotype": "haplotype"}
+GROUP_FACTS = {"sample": "samples", "haplotype": "haplotypes", "path": "path_names"}  # facts keys
 
 
 @dataclass
@@ -153,6 +158,25 @@ def compare(text: str, want: Table) -> Dict[str, float]:
     return out
 
 
+COMBINE = {"layout_off": "sum", "cells_off": "sum", "growth_gap": "max"}
+
+
 def reference_tables(argv: List[str], dtype=None) -> Table:
     cmd = parse_command(argv)
     return expected(cmd, read_gfa(cmd.gfa), dtype)
+
+
+def controls(argv: List[str], want: Table) -> Dict[str, str]:
+    return {"float32": write_tsv(reference_tables(argv, np.float32))}
+
+
+def shape(argv: List[str], facts: dict) -> dict:
+    """The work of one command, from the argv and the graph's facts."""
+    cmd = parse_command(argv)
+    return {
+        "counts": counts.COUNTS if cmd.count == "all" else (cmd.count,),
+        "n_groups": len(facts[GROUP_FACTS[cmd.grouping]]),
+        "n_nodes": facts["n_nodes"],
+        "n_edges": facts["n_edges"],
+        "n_thresholds": len(thresholds(cmd)),
+    }

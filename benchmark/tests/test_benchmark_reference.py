@@ -181,7 +181,8 @@ def test_every_cell_has_its_files():
         cell = Cell.load(w["name"], ROOT)
         assert os.path.exists(cell.config_path)
         assert set(cell.limits()) >= {"errors", "layout_off", "cells_off"}
-        tables.parse_command(cell.traffic["argv"])
+        assert set(cell.limits()) == {"errors", *cell.reference.COMBINE}
+        cell.reference.parse_command(cell.traffic["argv"])
         assert cell.metrics("per_layer") and cell.metrics("end_to_end")
     for m in spec["per_layer"]:
         assert os.path.exists(os.path.join(ROOT, "benchmark/metrics", m["name"] + ".py"))
