@@ -5,16 +5,17 @@ A cell (BENCHMARK.json `workloads`) names a configuration and a traffic mix,
 each a file of its own: configs/<config>.json (the graph's shape, read by
 generate.py) and traffic/<traffic>.json (one panacus argv, {gfa} in the
 place of the graph, and optionally the name of its reference module,
-`"reference"`; `tables` without it). The window is a closed loop: one
-`panacus_torch.cli.run_cli(argv, devices)` after the other, stdout of each
-into a TSV of its own, until `seconds` have passed; the command running at
-the close completes and counts. Every command's TSV is then compared with
-the table of the traffic's reference module (reference/<module>.py) under
-the limits of limits/<cell>.json. End-to-end metrics come from the host
-clock (`setup_s` is process start to the window less the making of the
-inputs, which the program's set-up has no part in and which a kept graph
-skips); per-layer metrics from metrics/<metric>.py, each a `read(run)` that
-returns a number or None.
+`"reference"`; `tables` without it). Any other `{name}` element of the
+argv is a file that the reference module's `inputs` writes for the run.
+The window is a closed loop: one `panacus_torch.cli.run_cli(argv, devices)`
+after the other, stdout of each into a TSV of its own, until `seconds` have
+passed; the command running at the close completes and counts. Every
+command's TSV is then compared with the table of the traffic's reference
+module (reference/<module>.py) under the limits of limits/<cell>.json.
+End-to-end metrics come from the host clock (`setup_s` is process start to
+the window less the making of the inputs, which the program's set-up has no
+part in and which a kept graph skips); per-layer metrics from
+metrics/<metric>.py, each a `read(run)` that returns a number or None.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import importlib.util
 import json
 import logging
 import os
+import re
 import resource
 import shutil
 import statistics
@@ -68,7 +70,12 @@ def reference_module(name: str) -> ModuleType:
     - compare(text, want): its own named numbers for one written table;
     - COMBINE: {number: "sum" or "max"}, how each combines over commands;
     - controls(argv, want): {control: its written table}, the controls that
-      readings.py holds against the limits."""
+      readings.py holds against the limits;
+    - optionally inputs(traffic, gfa, facts, work): writes into `work` the
+      files, other than the GFA, that the argv names, each made from the
+      traffic file's own keys and the graph's facts (a report's YAML, an
+      order file, an exclude file), and returns {placeholder: path}; each
+      argv element `{placeholder}` becomes that path."""
     if not name.isidentifier():
         raise ValueError(f"no reference module {name!r}")
     return importlib.import_module(f"{__package__}.reference.{name}")
@@ -115,10 +122,20 @@ class Inputs:
     mb: float  # uncompressed GFA MB (1e6 bytes)
 
 
-def prepare_inputs(cell: Cell, seed: int, graph_dir: str = GRAPH_DIR) -> Inputs:
+def placeholder(arg: str) -> Optional[str]:
+    """The name inside an argv element that reads `{name}`, else None."""
+    m = re.fullmatch(r"\{([^{}]*)\}", arg)
+    return m.group(1) if m else None
+
+
+def prepare_inputs(cell: Cell, seed: int, graph_dir: str = GRAPH_DIR,
+                   work: Optional[str] = None) -> Inputs:
     """Generate (in a child process) or reuse the seed's graph, read it
     through once (so that the page cache holds it however it was made), and
-    fill in the traffic's argv."""
+    fill in the traffic's argv: `{gfa}` with the graph, and the placeholders
+    of the reference module's `inputs` with the files it writes into `work`
+    (the run's own directory, removed with it). Raises on a placeholder left
+    unfilled, before any command runs."""
     cmd = [sys.executable, os.path.join(HERE, "generate.py"), cell.config_path, str(seed), graph_dir]
     gfa = subprocess.run(cmd, check=True, stdout=subprocess.PIPE, text=True).stdout.strip()
     with open(gfa + ".json") as f:
@@ -126,7 +143,22 @@ def prepare_inputs(cell: Cell, seed: int, graph_dir: str = GRAPH_DIR) -> Inputs:
     with open(gfa, "rb") as f:
         while f.read(64 << 20):
             pass
-    argv = [gfa if a == "{gfa}" else a for a in cell.traffic["argv"]]
+    files = {"gfa": gfa}
+    hook = getattr(cell.reference, "inputs", None)
+    if hook is not None:
+        if work is None:
+            raise ValueError(f"cell {cell.name}: its reference module writes input files, "
+                             "and prepare_inputs was given no work directory")
+        made = hook(cell.traffic, gfa, facts, work)
+        root = os.path.realpath(work)
+        for name, path in made.items():
+            if name == "gfa" or os.path.commonpath([root, os.path.realpath(path)]) != root:
+                raise ValueError(f"cell {cell.name}: input {name!r} ({path}) is not a file in {work}")
+        files.update(made)
+    argv = [files.get(placeholder(a), a) for a in cell.traffic["argv"]]
+    unfilled = [a for a in argv if placeholder(a) is not None]
+    if unfilled:
+        raise ValueError(f"cell {cell.name}: argv placeholders left unfilled: {' '.join(unfilled)}")
     return Inputs(argv, facts, facts["gfa_bytes"] / 1e6)
 
 
@@ -362,7 +394,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, devices, t_proc
     work = tempfile.mkdtemp(prefix="benchmark-")
     try:
         t0 = time.perf_counter()
-        inputs = prepare_inputs(cell, seed, graph_dir)
+        inputs = prepare_inputs(cell, seed, graph_dir, work)
         t_inputs = time.perf_counter() - t0
         say(f"cell {cell.name}, seed {seed}: inputs in {t_inputs:.3f} s, "
             f"{inputs.mb:.3f} MB GFA; argv {' '.join(inputs.argv)}")

@@ -48,7 +48,7 @@ def main(argv=None) -> int:
             work = tempfile.mkdtemp(prefix="readings-")
             try:
                 t0 = time.perf_counter()
-                inputs = harness.prepare_inputs(cell, seed)
+                inputs = harness.prepare_inputs(cell, seed, work=work)
                 cmds = harness.run_commands(cli.run_cli, inputs.argv, devices, args.seconds, work)
                 t1 = time.perf_counter()
                 ref = cell.reference
