@@ -1304,7 +1304,7 @@ def counted(fn):
 def check_scaled(what, k, launches, one):
     """Each kernel launched k times as often on k shards as on one, but for
     the step-list parse, which only a build on one device runs
-    (stream._parse_on_device): it must not run on k > 1 shards."""
+    (stream.parse_on_device): it must not run on k > 1 shards."""
     bad = {
         n: (launches[n], one[n])
         for n in one

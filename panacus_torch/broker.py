@@ -16,6 +16,7 @@ from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
+from . import stream
 from .abacus import AbacusByGroup, AbacusByTotal, construct_hists, path_order_groups
 from .gfa import GraphStorage, PathSegment
 from .hist import Hist
@@ -88,7 +89,7 @@ class GraphBroker:
             self.state = None
             graph_changed = prev.graph != state.graph
             if graph_changed:
-                self._load_graph(reqs, nice)
+                self._load_graph(reqs, nice, state)
             else:
                 self.input_requirements = set(reqs)
             # a graph reload resets the mask params: re-apply the full state
@@ -102,7 +103,7 @@ class GraphBroker:
                 self.mask_params.groupby_haplotype = False
                 self._apply_grouping(state.grouping)
         else:
-            self._load_graph(reqs, nice)
+            self._load_graph(reqs, nice, state)
             if state.subset:
                 self.mask_params.positive_list = state.subset
             if state.exclude:
@@ -136,7 +137,7 @@ class GraphBroker:
             return f"{state.graph}-{state.subset}-{state.grouping}"
         return f"{state.graph}-{state.subset}"
 
-    def _load_graph(self, reqs: Set, nice: bool) -> None:
+    def _load_graph(self, reqs: Set, nice: bool, state: GraphState) -> None:
         count_type = self._derive_count_type(reqs)
         gfa_file = next(
             (r[1] for r in reqs if isinstance(r, tuple) and r[0] == "graph"),
@@ -144,17 +145,29 @@ class GraphBroker:
         )
         if gfa_file is None:
             raise ValueError("Requirements contain gfa file")
+        self.close()
+        self.count_type = count_type
         index_edges = count_type in (CountType.EDGE, CountType.ALL)
+        # the build will parse the step lists on this device: the index
+        # starts their upload (GraphStorage, where the names allow it)
+        masked = bool(state.subset or state.exclude)
+        on_device = stream.parse_on_device(self._count_types(), self.devices, masked)
         with phase_timer("index"):
-            self.graph_aux = GraphStorage(gfa_file, index_edges, nice)
+            self.graph_aux = GraphStorage(
+                gfa_file, index_edges, nice, self.devices[0] if on_device else None
+            )
         self.gfa_file = gfa_file
         self.input_requirements = set(reqs)
-        self.count_type = count_type
         self.mask_params = GraphMaskParameters()
         self.total_abaci = None
         self.group_abacus = None
         self.hists = None
         self.path_lens = None
+
+    def close(self) -> None:
+        """Join the graph's step-list upload, if one is in flight."""
+        if self.graph_aux is not None:
+            self.graph_aux.close()
 
     @staticmethod
     def _derive_count_type(reqs: Set) -> CountType:

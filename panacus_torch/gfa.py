@@ -329,7 +329,13 @@ class GraphStorage:
     payload spans for lazy itemization, canonical edge table if requested.
     """
 
-    def __init__(self, gfa_file: str, index_edges: bool, nice: bool = False):
+    def __init__(
+        self, gfa_file: str, index_edges: bool, nice: bool = False, upload_to=None
+    ):
+        """`upload_to`: the torch device whose build will parse the step lists
+        there (stream.parse_on_device); where the node names are the
+        identity names, a worker thread copies the bytes from the first P/W
+        line to the last to it while the index runs (take_upload)."""
         self.gfa_file = gfa_file
         self.is_nice = nice
         data = _read_all(gfa_file)
@@ -391,12 +397,21 @@ class GraphStorage:
             self._index_nodes(starts[is_s], ends[is_s])
             sp.add(nodes=self.node_count)
 
+        parent = handoff()  # the upload's worker cannot see the profiler
+        self._upload = None
+        self._upload_taken = False
         with span("index.paths") as sp:
             # paths/walks in file order
             is_w = first == ord("W")
             pw_mask = (first == ord("P")) | is_w
             self._pw_starts = starts[pw_mask]
             self._pw_ends = ends[pw_mask]
+            if upload_to is not None and self.identity_names and len(self._pw_starts):
+                from .ops.parse_kernels import StepUpload
+
+                self._upload = StepUpload(
+                    buf, int(self._pw_starts[0]), int(self._pw_ends[-1]), upload_to, parent
+                )
             self._pw_is_walk = is_w[pw_mask]
             self.path_segments: List[PathSegment] = []
             self._pw_seq_spans: List[Tuple[int, int]] = []
@@ -755,6 +770,21 @@ class GraphStorage:
             np.ascontiguousarray(spans[:, 1]),
             np.ascontiguousarray(walk, dtype=np.uint8),
         )
+
+    def take_upload(self):
+        """The StepUpload started while indexing (its bytes cover every step
+        list), for the first build that asks; None after, or where none
+        started."""
+        if self._upload_taken:
+            return None
+        self._upload_taken = True
+        return self._upload
+
+    def close(self) -> None:
+        """Join the step-list upload's worker, if one started, so that it
+        reads the map no more. The map goes with the object."""
+        if self._upload is not None:
+            self._upload.close()
 
     @property
     def buf(self) -> np.ndarray:

@@ -12,6 +12,12 @@ slot, the counts, the bp sums, all added to). A malformed token (checked as
 the host tokenizer checks it) or an id outside 1..n_items lowers the error
 slot, ERR_NONE while none failed, to the least failing span.
 
+The copy is a `StepUpload`, which GraphStorage starts on a worker thread
+while the index still runs (bytes from the first P/W line to the last): the
+same pageable copy as `upload`, on a stream of the job's own, so that it is
+off the main thread. A build that finds no such upload in flight copies
+with `upload` on the calling thread.
+
 The wrapper takes the plain version for tensors on the CPU and launches
 csrc/parse.cu:pt_parse_pack for tensors on a CUDA device; it never falls
 back from one to the other. Where a list fails, the plain version leaves
@@ -21,12 +27,15 @@ way the caller discards the build.
 
 from __future__ import annotations
 
+import contextlib
 import warnings
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..runtime import span
 from . import kernels
 
 ERR_NONE = np.iinfo(np.int64).max
@@ -110,6 +119,40 @@ def upload(data: np.ndarray, device: torch.device) -> torch.Tensor:
         warnings.simplefilter("ignore", UserWarning)
         host = torch.from_numpy(data)
     return host if device.type == "cpu" else host.to(device)
+
+
+class StepUpload:
+    """buf[base:end] copied to `device` by `upload` on a worker thread, on a
+    stream of the job's own, under the span `index.upload` (count `bytes`)
+    that `parent` (what runtime.handoff() gave) parents. `take` gives the
+    text, `close` joins the job."""
+
+    def __init__(self, buf: np.ndarray, base: int, end: int, device: torch.device, parent=None):
+        self.base, self.end = base, end
+        self._text: Optional[torch.Tensor] = None
+        ex = ThreadPoolExecutor(max_workers=1)
+        self._job = ex.submit(self._run, buf[base:end], device, parent)
+        ex.shutdown(wait=False)
+
+    def _run(self, data: np.ndarray, device: torch.device, parent) -> None:
+        cuda = device.type == "cuda"
+        with span("index.upload", handoff=parent, bytes=len(data)):
+            with torch.cuda.stream(torch.cuda.Stream(device)) if cuda else contextlib.nullcontext():
+                self._text = upload(data, device)
+
+    def take(self) -> torch.Tensor:
+        """Wait for the copy; the text, now the caller's."""
+        self._job.result()
+        text, self._text = self._text, None
+        if text is None:
+            raise RuntimeError("the upload's text was taken already")
+        return text
+
+    def close(self) -> None:
+        """Join the job (it reads the map no more then) and drop the text;
+        a failed copy that no build took raises nothing."""
+        wait([self._job])
+        self._text = None
 
 
 def parse_pack_ref(

@@ -126,49 +126,53 @@ def execute_pipeline(
         return
     report: List[AnalysisSection] = []
     gb = GraphBroker(devices)
-    for task in tasks:
-        if isinstance(task, AnalysisTask):
-            log.info("Executing Analysis: %s", task.analysis.get_type())
-            if json or shall_write_html:
-                report.extend(task.analysis.generate_report_section(gb))
-        elif isinstance(task, CustomSectionTask):
-            from .report.custom import generate_custom_section
+    try:
+        for task in tasks:
+            if isinstance(task, AnalysisTask):
+                log.info("Executing Analysis: %s", task.analysis.get_type())
+                if json or shall_write_html:
+                    report.extend(task.analysis.generate_report_section(gb))
+            elif isinstance(task, CustomSectionTask):
+                from .report.custom import generate_custom_section
 
-            report.extend(generate_custom_section(gb, task.name, task.file))
-        elif isinstance(task, GraphStateChange):
-            log.info("Executing graph change: %s", task.reqs)
-            gb.change_graph_state(
-                GraphState(
-                    graph=task.graph,
-                    name=task.name,
-                    subset=task.subset,
-                    exclude=task.exclude,
-                    grouping=task.grouping,
-                ),
-                task.reqs,
-                task.nice,
-            )
-        elif isinstance(task, OrderChange):
-            log.info("Executing order change: %s", task.order)
-            with phase_timer("order_change"):
-                gb.change_order(task.order or "")
-    if json:
-        out.write(json_mod.dumps([s.to_json_dict() for s in report], indent=2))
-        out.write("\n")
-    elif shall_write_html:
-        from .report.html import generate_report
-
-        out.write(generate_report(report, "<Placeholder Filename>"))
-        out.write("\n")
-    elif isinstance(tasks[-1], AnalysisTask):
-        analysis = tasks[-1].analysis
-        analysis.prepare(gb)
-        with span("cli.write") as sp:
-            table = analysis.generate_table(gb)
-            out.write(table)
+                report.extend(generate_custom_section(gb, task.name, task.file))
+            elif isinstance(task, GraphStateChange):
+                log.info("Executing graph change: %s", task.reqs)
+                gb.change_graph_state(
+                    GraphState(
+                        graph=task.graph,
+                        name=task.name,
+                        subset=task.subset,
+                        exclude=task.exclude,
+                        grouping=task.grouping,
+                    ),
+                    task.reqs,
+                    task.nice,
+                )
+            elif isinstance(task, OrderChange):
+                log.info("Executing order change: %s", task.order)
+                with phase_timer("order_change"):
+                    gb.change_order(task.order or "")
+        if json:
+            out.write(json_mod.dumps([s.to_json_dict() for s in report], indent=2))
             out.write("\n")
-            sp.add(bytes=len(table) + 1)
-    # the broker holds the graph, its item tables and the device matrices:
-    # release them here, inside the span, rather than at the return
-    with span("cli.release"):
-        del gb, report
+        elif shall_write_html:
+            from .report.html import generate_report
+
+            out.write(generate_report(report, "<Placeholder Filename>"))
+            out.write("\n")
+        elif isinstance(tasks[-1], AnalysisTask):
+            analysis = tasks[-1].analysis
+            analysis.prepare(gb)
+            with span("cli.write") as sp:
+                table = analysis.generate_table(gb)
+                out.write(table)
+                out.write("\n")
+                sp.add(bytes=len(table) + 1)
+    finally:
+        # the broker holds the graph, its item tables and the device
+        # matrices: release them here, inside the span, rather than at the
+        # return; the graph's upload worker is joined first, on every exit
+        with span("cli.release"):
+            gb.close()
+            del gb, report

@@ -29,19 +29,27 @@ SlabbedItemTable of node runs and, for edges, a LazyEdgeTable that derives
 edge ids from the node runs on demand. Both only keep references to the
 slabs the tokenizer has already produced.
 
-A build that counts no edges, on one CUDA device, of a graph whose
-node names are 1..n (identity names) parses its step lists on the card
-instead (`_parse_on_device`): the edge pack needs the host's ids and
-orientations in the tokenizer's pass, the node rows do not, so the two
-routes share no parsing. The GFA's bytes from the first step list to the
-last go to the card in one copy (span `build.stage` with its `bytes`) and
-one launch parses every slab's lists into M's rows on the copy stream
-(ops/parse_kernels.parse_pack, span `build.parse`); one copy back gives
-every path's length (span `build.wait`). The node table is then a
+An unmasked build in one process that counts no edges, on one CUDA
+device, of a graph whose node names are 1..n (identity names) parses its
+step lists on the card instead (`parse_on_device`): the edge pack needs the
+host's ids and orientations in the tokenizer's pass, the node rows do not,
+so the two routes share no parsing. The broker asks the same predicate
+when it loads the graph, and GraphStorage then starts the upload of the
+GFA's bytes from the first P/W line to the last on a worker thread
+(parse_kernels.StepUpload, span `index.upload`), which runs while the index
+and the build's set-up go on. The build takes that upload (span
+`build.stage`, with the `bytes` from the first step list to the last: the
+wait for the job's copy), or, where none is in flight (a second build of
+the same load), copies those bytes itself; one launch parses every
+slab's lists into M's rows on the copy stream (ops/parse_kernels.parse_pack,
+span `build.parse`); one copy back gives every path's length (span
+`build.wait`). The node table is then a
 LazyNodeTable, which parses again on the host only for a reader of the ids
 (the coverage-table export). A malformed step list makes this route
 return None too. The build adds `node_slabs` and `node_slabs_on_device` to
-`abaci_by_total`.
+`abaci_by_total`, and `uploads` (1 where it copied step lists to the card,
+else 0) and `uploads_early` (1 where it took the upload started while
+indexing).
 
 Applicability: unmasked runs (no subset/exclude coordinates) on graphs the
 native batch tokenizer handles. Masked runs take the classic itemizer.
@@ -74,6 +82,9 @@ from .runtime import add_counts, effective_threads, span, world
 from .utils import CountType
 
 log = logging.getLogger("panacus")
+
+# the upload counts of a node build that copies no step lists
+NO_UPLOADS = {"uploads": 0, "uploads_early": 0}
 
 
 @dataclass
@@ -261,15 +272,40 @@ class LazyNodeTable:
         return self._prefsum
 
 
-def _parse_on_device(graph: GraphStorage, count_types: List[CountType], devices: Devices) -> bool:
-    """The node rows are parsed on the card: no edges counted, one CUDA
-    device, identity node names."""
+def _parses_on(device) -> bool:
+    """The device route's device: a CUDA card."""
+    return device.type == "cuda"
+
+
+def parse_on_device(
+    count_types: List[CountType], devices: Devices, masked: bool, identity_names: bool = True
+) -> bool:
+    """The node rows are parsed on the card: one process, one CUDA device,
+    no edges counted, no subset or exclude coordinates (`masked`), identity
+    node names. The broker asks before the index knows the names, and
+    GraphStorage checks them; the build asks with them."""
     return (
-        len(devices) == 1
-        and devices[0].type == "cuda"
+        world()[1] == 1
+        and len(devices) == 1
+        and _parses_on(devices[0])
         and CountType.EDGE not in count_types
-        and graph.identity_names
+        and not masked
+        and identity_names
     )
+
+
+def _step_text(graph: GraphStorage, lo: int, hi: int, device) -> Tuple[torch.Tensor, int, bool]:
+    """(text, base, early): the bytes buf[lo:hi] on `device` at
+    text[lo - base:hi - base], from the upload the index started where one
+    is in flight (`early`: its range holds every step list), else copied
+    now."""
+    up = graph.take_upload()
+    if up is None:
+        return parse_kernels.upload(graph.buf[lo:hi], device), lo, False
+    text = up.take()
+    if device.type == "cuda":  # allocated on the job's stream
+        text.record_stream(torch.cuda.current_stream(device))
+    return text, up.base, True
 
 
 def _node_rows_on_device(
@@ -277,10 +313,10 @@ def _node_rows_on_device(
     slabs: List[_Slab],
     node_stream: MembershipStream,
     paths_len: Dict[PathSegment, Tuple[int, int]],
-) -> bool:
+) -> Optional[Dict[str, int]]:
     """Build node_stream's rows from the slabs' raw step lists, one upload
-    and one pt_parse_pack, and fill paths_len; False where a step list is
-    malformed (the caller discards the stream)."""
+    and one pt_parse_pack, and fill paths_len; the upload's counts, or None
+    where a step list is malformed (the caller discards the stream)."""
     order = np.concatenate([s.path_ids for s in slabs])
     starts, ends, walk = graph.step_lists(order)
     words = np.concatenate([np.full(len(s.path_ids), s.word, np.int32) for s in slabs])
@@ -288,26 +324,29 @@ def _node_rows_on_device(
     lo, hi, descs = parse_kernels.descriptors(starts, ends, walk, words, bits)
     n_spans, n_items = len(order), graph.node_count
     M, stream = node_stream.device_rows()
+    uploads = NO_UPLOADS
     with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
         lens = torch.from_numpy(graph.node_lens.view(np.int32)).to(M.device, non_blocking=True)
         acc = torch.zeros(1 + 2 * n_spans, dtype=torch.int64, device=M.device)
         acc[0] = int(parse_kernels.ERR_NONE)
         if len(descs):
             with span("build.stage") as sp:
-                text = parse_kernels.upload(graph.buf[lo:hi], M.device)
+                text, base, early = _step_text(graph, lo, hi, M.device)
                 sp.add(bytes=hi - lo)
+            uploads = dict(uploads=1, uploads_early=int(early))
+            descs[:, :2] += lo - base
             with span("build.parse"):
                 d = torch.from_numpy(descs).to(M.device, non_blocking=True)
                 parse_kernels.parse_pack(text, d, M, lens, n_items, acc)
         with span("build.wait"):
             got = acc.cpu().numpy()
     if got[0] != parse_kernels.ERR_NONE:
-        return False
+        return None
     segs = graph.path_segments
     for j, pid in enumerate(order):
         paths_len[segs[int(pid)]] = (int(got[1 + j]), int(got[1 + n_spans + j]))
     node_stream.written([s.word for s in slabs if s.word >= 0])
-    return True
+    return uploads
 
 
 def streamed_total_abaci(
@@ -322,7 +361,8 @@ def streamed_total_abaci(
     builds through parallel.ingest.multihost_total_abaci."""
     if world()[1] > 1:
         return None
-    if mask.include_coords is not None or mask.exclude_coords is not None:
+    masked = mask.include_coords is not None or mask.exclude_coords is not None
+    if masked:
         return None
     if not graph.batch_tokenizable():
         return None
@@ -336,7 +376,7 @@ def streamed_total_abaci(
     need_edge = CountType.EDGE in count_types
     need_node = any(ct != CountType.EDGE for ct in count_types)
 
-    on_device = need_node and _parse_on_device(graph, count_types, devices)
+    on_device = need_node and parse_on_device(count_types, devices, masked, graph.identity_names)
 
     node_stream = (
         MembershipStream(graph.number_of_items(CountType.NODE), n_groups, devices)
@@ -419,8 +459,10 @@ def streamed_total_abaci(
                 stream.discard()
 
     host_slabs = slabs
+    uploads = NO_UPLOADS
     if on_device:
-        if not _node_rows_on_device(graph, slabs, node_stream, paths_len):
+        uploads = _node_rows_on_device(graph, slabs, node_stream, paths_len)
+        if uploads is None:
             bail()
             return None
         host_slabs = []  # no edges: nothing is left for the host's pass
@@ -468,7 +510,9 @@ def streamed_total_abaci(
         consume_stashed()
         add_counts(edge_slabs=edge_slabs, edge_slabs_repacked=edge_slabs_repacked)
     if need_node:
-        add_counts(node_slabs=len(slabs), node_slabs_on_device=len(slabs) if on_device else 0)
+        add_counts(
+            node_slabs=len(slabs), node_slabs_on_device=len(slabs) if on_device else 0, **uploads
+        )
 
     with span("build.finalize"):
         node_engine = node_stream.finalize() if need_node else None

@@ -7,7 +7,7 @@ of tests/parse_cases.py: P and W lists, seven- and eight-digit ids, ids 0
 and n_items + 1, stray bytes, missing orientations, between bytes of other
 fields. The descriptor rows (parse_kernels.descriptors) are checked to name
 every non-empty list once, in the text's order. The route itself runs
-here with `_parse_on_device` forced (it engages only on a CUDA device), so
+here with `parse_on_device` forced (it engages only on a CUDA device), so
 parse_pack takes the plain version: on make_graph and the dryrun graph
 (also with its P and W lines among its S lines), with the group file that
 leaves most paths in no group, its M, paths_len and node table equal the
@@ -19,6 +19,7 @@ The kernel against this plain version is in test_torch_parse_card.py.
 from __future__ import annotations
 
 import logging
+import re
 
 import numpy as np
 import pytest
@@ -208,7 +209,7 @@ def _build(gfa, counts, forced, groups=None):
     mask = GraphMask.from_datamgr(params, g)
     with pytest.MonkeyPatch.context() as mp:
         if forced:
-            mp.setattr(stream, "_parse_on_device", lambda *a: True)
+            mp.setattr(stream, "parse_on_device", lambda *a: True)
         return g, stream.streamed_total_abaci(g, mask, cts, (torch.device("cpu"),))
 
 
@@ -277,23 +278,34 @@ def test_route_on_make_graph_and_its_counts(tmp_path):
     assert [r.name for r in got].count("build.parse") == 1
     assert [r.name for r in got].count("build.wait") == 1
     top_rec = [r for r in got if r.name == "abaci_by_total"][0]
-    assert top_rec.counts == {"node_slabs": 3, "node_slabs_on_device": 3}
+    # a GraphStorage made with no device to upload to: the build copies
+    assert top_rec.counts == {
+        "node_slabs": 3, "node_slabs_on_device": 3,
+        "uploads": 1, "uploads_early": 0,
+    }
     runtime.reset_spans()
 
 
-def test_route_engages_only_where_it_applies(graphs):  # noqa: F811
+def test_route_engages_only_where_it_applies(graphs, monkeypatch):  # noqa: F811
+    from panacus_torch import runtime
     from panacus_torch.gfa import GraphStorage
     from panacus_torch.utils import CountType
 
     g = GraphStorage(str(graphs / "dryrun.gfa"), index_edges=False)
     card, cpu = (torch.device("cuda", 0),), (torch.device("cpu"),)
     node, edge = [CountType.NODE, CountType.BP], [CountType.NODE, CountType.EDGE]
-    assert stream._parse_on_device(g, node, card)
-    assert not stream._parse_on_device(g, edge, card)
-    assert not stream._parse_on_device(g, node, cpu)
-    assert not stream._parse_on_device(g, node, card * 2)
+    on = stream.parse_on_device
+    assert on(node, card, False, g.identity_names)
+    assert on(node, card, False)  # the broker, before the index knows the names
+    assert not on(edge, card, False, g.identity_names)
+    assert not on(node, cpu, False, g.identity_names)
+    assert not on(node, card * 2, False, g.identity_names)
+    assert not on(node, card, True, g.identity_names)
     g._int_name_mode = "sorted"
-    assert not stream._parse_on_device(g, node, card)
+    assert not on(node, card, False, g.identity_names)
+    monkeypatch.setattr(runtime, "_world", (0, 2), raising=False)
+    monkeypatch.setattr(stream, "world", lambda: (0, 2))
+    assert not on(node, card, False)
 
 
 def _malformed(graphs, tmp_path):  # noqa: F811
@@ -344,7 +356,7 @@ def test_tsv_equals_jax(graphs, tmp_path, argv, graph, capsys, monkeypatch, capl
     gfa = _malformed(graphs, tmp_path) if graph == "bad" else graphs / f"{graph}.gfa"
     argv = [a.replace("{groups}", str(graphs / "groups.tsv")) for a in argv] + [str(gfa)]
     monkeypatch.setenv("PANACUS_TORCH_DEVICE", "cpu")
-    monkeypatch.setattr(stream, "_parse_on_device", lambda *a: True)
+    monkeypatch.setattr(stream, "parse_on_device", lambda *a: True)
     with caplog.at_level(logging.INFO, logger="panacus"):
         caplog.clear()
         assert torch_cli(argv) == 0
@@ -355,3 +367,211 @@ def test_tsv_equals_jax(graphs, tmp_path, argv, graph, capsys, monkeypatch, capl
         assert parsed
     assert jax_cli(argv) == 0
     assert _body(capsys.readouterr().out) == got
+
+
+# -- the upload the index starts ----------------------------------------------
+
+
+def _lines_gfa(tmp_path, paths, among_s=False, n_items=9999):
+    """A GFA of S lines 1..n_items (identity names) and the paths, given as
+    (kind, step list) with kind "P" or "W", after the S lines or among them."""
+    segs = [f"S\t{i}\tA" for i in range(1, n_items + 1)]
+    lines = []
+    for k, (kind, steps) in enumerate(paths):
+        if kind == "P":
+            lines.append(f"P\ts{k}#0#c\t{steps}\t*")
+        else:
+            lines.append(f"W\ts{k}\t0\tc\t0\t9\t{steps}")
+    if among_s:
+        out = []
+        for j, seg in enumerate(segs):
+            out.append(seg)
+            if lines and j % 997 == 5:
+                out.append(lines.pop(0))
+        out += lines
+    else:
+        out = segs + lines
+    gfa = tmp_path / "lines.gfa"
+    gfa.write_text("\n".join(out) + "\n")
+    return gfa
+
+
+RANGES = {
+    "p_lines": ([("P", "1+,22-,333+,4444-"), ("P", "9+"), ("P", "1234+,1+")], False),
+    "w_lines": ([("W", ">5<66>777<8888"), ("W", ">1"), ("W", "<9999>2")], False),
+    "p_and_w_among_s_lines": (
+        [("P", "1+,22-"), ("W", ">5<66"), ("P", "9+"), ("W", ">1"), ("P", "7-,8+")], True),
+    "empty_lists": ([("P", ""), ("P", "1+,2+"), ("P", ""), ("W", ">3"), ("P", "")], False),
+}
+
+
+def _range_covers_today(graphs, tmp_path, monkeypatch, capsys, caplog, name):
+    """The index's upload holds the bytes from the first P/W line to the
+    last; with its descriptor rows offset by that base, every row names the
+    bytes that today's rows name in buf[lo:hi], and the text holds all of
+    buf[lo:hi]."""
+    from panacus_torch.gfa import GraphStorage
+
+    paths, among_s = RANGES[name]
+    g = GraphStorage(str(_lines_gfa(tmp_path, paths, among_s)), index_edges=False,
+                     upload_to=torch.device("cpu"))
+    assert g.identity_names
+    up = g.take_upload()
+    assert g.take_upload() is None  # the first build alone takes it
+    text = up.take()
+    up.close()
+    assert up.end - up.base == text.numel()
+    starts, ends, walk = g.step_lists()
+    z = np.zeros(len(starts), np.int32)
+    lo, hi, today = parse_kernels.descriptors(starts, ends, walk, z, z)
+    assert len(today) == sum(1 for _, steps in paths if steps)
+    early = today.copy()
+    early[:, :2] += lo - up.base
+    s, buf = text.numpy(), g.buf
+    for (b, e, *_), (eb, ee, *_) in zip(today.tolist(), early.tolist()):
+        assert s[eb:ee].tobytes() == buf[lo + b : lo + e].tobytes() != b""
+    assert up.base <= lo and hi <= up.end
+    assert s[lo - up.base : hi - up.base].tobytes() == buf[lo:hi].tobytes()
+
+
+class _Jobs:
+    """Records the StepUploads started and whether a build took each."""
+
+    def __init__(self, monkeypatch):
+        self.made, self.taken = [], []
+        made, taken = self.made, self.taken
+
+        class Recorded(parse_kernels.StepUpload):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                made.append(self)
+
+            def take(self):
+                taken.append(self)
+                return super().take()
+
+        monkeypatch.setattr(parse_kernels, "StepUpload", Recorded)
+
+
+def _run(argv, capsys):
+    assert torch_cli(argv) == 0
+    return _body(capsys.readouterr().out)
+
+
+JOBLESS = {
+    "all": ["histgrowth", "-c", "all", "-H"],
+    "edge": ["histgrowth", "-c", "edge", "-H"],
+    "subset": ["histgrowth", "-c", "node", "-H", "-s", "{subset}"],
+    "exclude": ["histgrowth", "-c", "node", "-H", "-e", "{exclude}"],
+    "names": ["histgrowth", "-c", "node", "-H"],
+}
+
+
+def _no_job(graphs, tmp_path, monkeypatch, capsys, caplog, name):
+    """With the card's device forced to the CPU, `-c node` starts one job and
+    its build takes it; -c all, -c edge, a subset, an exclude and names
+    other than 1..n start none."""
+    monkeypatch.setenv("PANACUS_TORCH_DEVICE", "cpu")
+    monkeypatch.setattr(stream, "_parses_on", lambda device: True)
+    jobs = _Jobs(monkeypatch)
+    gfa = graphs / "dryrun.gfa"
+    _run(["histgrowth", "-c", "node", "-H", str(gfa)], capsys)
+    assert len(jobs.made) == len(jobs.taken) == 1
+    if name == "names":  # the same graph, node i named 10 * i
+        text = gfa.read_text().splitlines()
+        renamed = []
+        for line in text:
+            f = line.split("\t")
+            if f[0] == "S":
+                f[1] = str(10 * int(f[1]))
+            elif f[0] == "P":
+                f[2] = ",".join(str(10 * int(s[:-1])) + s[-1] for s in f[2].split(","))
+            elif f[0] == "W":
+                f[6] = re.sub(r"\d+", lambda m: str(10 * int(m.group())), f[6])
+            elif f[0] == "L":
+                f[1], f[3] = str(10 * int(f[1])), str(10 * int(f[3]))
+            renamed.append("\t".join(f))
+        gfa = tmp_path / "renamed.gfa"
+        gfa.write_text("\n".join(renamed) + "\n")
+    argv = [a.format(subset=graphs / "subset.bed", exclude=graphs / "exclude.bed")
+            for a in JOBLESS[name]]
+    _run(argv + [str(gfa)], capsys)
+    assert len(jobs.made) == 1
+
+
+TSVS = {
+    "histgrowth_node": ["histgrowth", "-c", "node", "-H", "-q", "0,0.5,1", "-l", "0,1,2"],
+    "histgrowth_bp": ["histgrowth", "-c", "bp", "-S", "-a"],
+    "similarity_node": ["similarity", "-c", "node", "-H"],
+    "info": ["info", "-S"],
+}
+
+
+def _tsv(graphs, tmp_path, monkeypatch, capsys, caplog, name):
+    """The CLI with the card's device forced to the CPU: each node and bp
+    build takes the index's upload and parses from it (no bail to the
+    classic itemizer), and the TSV equals panacus_tpu's."""
+    pytest.importorskip("jax")
+    from panacus_torch import broker
+    from panacus_tpu.cli import run_cli as jax_cli
+
+    def refuse(*a, **k):
+        raise AssertionError("the build bailed to the classic itemizer")
+
+    monkeypatch.setattr(broker, "itemize_paths", refuse)
+    monkeypatch.setenv("PANACUS_TORCH_DEVICE", "cpu")
+    monkeypatch.setattr(stream, "_parses_on", lambda device: True)
+    jobs = _Jobs(monkeypatch)
+    for graph in ("dryrun", "bench"):
+        argv = TSVS[name] + [str(graphs / f"{graph}.gfa")]
+        with caplog.at_level(logging.INFO, logger="panacus"):
+            caplog.clear()
+            got = _run(argv, capsys)
+        early = "step lists parsed on the device" in caplog.text
+        assert early == (name != "info")  # info counts edges
+        assert len(jobs.taken) == len(jobs.made) == (1 if early else 0)
+        jobs.made.clear()
+        jobs.taken.clear()
+        assert jax_cli(argv) == 0
+        assert _body(capsys.readouterr().out) == got
+
+
+def _never_builds(graphs, tmp_path, monkeypatch, capsys, caplog, name):
+    """A command that loads and raises before its build (a missing group
+    file) joins the upload's job before it releases the graph."""
+    import time
+
+    copy = parse_kernels.upload
+
+    def slow(data, device):
+        time.sleep(0.3)  # still running when the command raises, unless joined
+        return copy(data, device)
+
+    monkeypatch.setattr(parse_kernels, "upload", slow)
+    monkeypatch.setenv("PANACUS_TORCH_DEVICE", "cpu")
+    monkeypatch.setattr(stream, "_parses_on", lambda device: True)
+    jobs = _Jobs(monkeypatch)
+    argv = ["histgrowth", "-c", "node", "-g", str(tmp_path / "missing.tsv"), str(graphs / "dryrun.gfa")]
+    with pytest.raises(Exception):
+        torch_cli(argv)
+    (up,) = jobs.made
+    assert not jobs.taken and up._job.done() and up._text is None
+
+
+EARLY = {
+    **{f"range_{k}": (_range_covers_today, k) for k in RANGES},
+    **{f"no_job_{k}": (_no_job, k) for k in JOBLESS},
+    **{f"tsv_{k}": (_tsv, k) for k in TSVS},
+    "never_builds": (_never_builds, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EARLY))
+def test_the_upload_the_index_starts(graphs, tmp_path, monkeypatch, capsys, caplog, case):  # noqa: F811
+    """The step-list upload that GraphStorage starts while indexing:
+    `range_*` its bytes against today's buf[lo:hi], `no_job_*` the loads
+    that start none, `tsv_*` the CLI's TSVs against panacus_tpu's with the
+    route forced onto the CPU, `never_builds` a command that raises before
+    its build."""
+    check, name = EARLY[case]
+    check(graphs, tmp_path, monkeypatch, capsys, caplog, name)

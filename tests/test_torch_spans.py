@@ -5,7 +5,10 @@ command: `command` at the root, the CLI's parse, write and release, the
 index's scan, nodes and paths, the L-line indexer's submit and the indexer
 on its worker thread, the build's allocations, tokenize, pack, edge pack,
 wait and finalize, and the phases, each under its parent, all with one
-command id, their counts filled. With no profiler a span records nothing and opens no
+command id, their counts filled; then a `-c node` with the device route
+forced onto the CPU adds the step-list upload on its worker thread
+(`index.upload`), the build's stage, parse and wait, and the upload's
+counts. With no profiler a span records nothing and opens no
 record_function, while phase_timer still logs. Every span on the main
 thread lies where its record_function twin lies in the profiler's events
 (the same clock). A full record counts what it drops, also when more
@@ -47,6 +50,7 @@ PARENTS = {
     "index.paths": "index",
     "index.edges": "index",
     "edge_index": "index",
+    "index.upload": "index",
     "abaci_by_total": "command",
     "build.alloc": "abaci_by_total",
     "build.tokenize": "abaci_by_total",
@@ -54,12 +58,19 @@ PARENTS = {
     "edge_index.wait": "abaci_by_total",
     "edge_index.adj": "abaci_by_total",
     "build.edge_pack": "abaci_by_total",
+    "build.stage": "abaci_by_total",
+    "build.parse": "abaci_by_total",
+    "build.wait": "abaci_by_total",
     "build.finalize": "abaci_by_total",
     "hists": "command",
     "growth": "command",
     "cli.write": "command",
     "cli.release": "command",
 }
+# the spans of the device route (a node build, one card), which -c all skips
+ROUTE = {"index.upload", "build.stage", "build.parse", "build.wait"}
+# spans on a worker thread
+WORKER = {"edge_index", "index.upload"}
 
 
 @pytest.fixture(scope="module")
@@ -76,10 +87,10 @@ def fresh_record():
     runtime.reset_spans()
 
 
-def _cli(gfa):
+def _cli(gfa, argv=ARGV):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        assert run_cli(ARGV + [gfa], devices=CPU) == 0
+        assert run_cli(argv + [gfa], devices=CPU) == 0
     return out.getvalue()
 
 
@@ -105,33 +116,44 @@ def _late_indexer(monkeypatch):
     monkeypatch.setattr(GraphStorage, "all_path_item_runs", counted)
 
 
-def _profiled(gfa):
+def _profiled(gfa, argv=ARGV):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        text = _cli(gfa)
+        text = _cli(gfa, argv)
     return prof, text
 
 
-def test_a_traced_command_records_every_span(gfa, monkeypatch):
-    _late_indexer(monkeypatch)
-    _, text = _profiled(gfa)
-    got = runtime.spans()
+def _tree(got, want):
+    """Every span of one command under its parent, with the command's id,
+    on the main thread but for the workers' spans; the names are `want`."""
     assert runtime.spans_dropped() == 0
     by_id = {r.id: r for r in got}
     names = {r.name for r in got}
-    assert names == set(PARENTS), names ^ set(PARENTS)
+    assert names == want, names ^ want
     (command,) = [r for r in got if r.name == "command"]
-    for r in got:
-        want = PARENTS[r.name]
-        assert (by_id[r.parent].name if r.parent is not None else None) == want, r
-        assert r.command == command.id, r
-        assert r.start_ns <= r.end_ns
     main = threading.get_ident()
     for r in got:
-        assert (r.thread == main) == (r.name != "edge_index"), r
+        assert (by_id[r.parent].name if r.parent is not None else None) == PARENTS[r.name], r
+        assert r.command == command.id, r
+        assert r.start_ns <= r.end_ns
+        assert (r.thread == main) == (r.name not in WORKER), r
 
     def one(name):
         (r,) = [r for r in got if r.name == name]
         return r.counts
+
+    return one
+
+
+def test_a_traced_command_records_every_span(gfa, monkeypatch):
+    """-c all, then -c node with the device route forced onto the CPU
+    (`stream._parses_on`): the step-list upload the index starts, on its
+    worker, and the build's stage, parse and wait."""
+    from panacus_torch import stream
+
+    _late_indexer(monkeypatch)
+    _, text = _profiled(gfa)
+    got = runtime.spans()
+    one = _tree(got, set(PARENTS) - ROUTE)
 
     assert one("index.scan")["bytes"] == os.path.getsize(gfa)
     assert one("index.scan")["lines"] > 3000 + 300
@@ -143,12 +165,34 @@ def test_a_traced_command_records_every_span(gfa, monkeypatch):
         "edge_slabs_repacked": N_SLABS,
         "node_slabs": N_SLABS,
         "node_slabs_on_device": 0,  # -c all: the node rows are packed on the host
+        "uploads": 0,
+        "uploads_early": 0,
     }
     assert one("build.edge_pack") == {"slabs": N_SLABS}
     assert one("cli.write") == {"bytes": len(text)}
     for name in ("build.tokenize", "build.pack"):
         slabs = sorted(r.counts["slab"] for r in got if r.name == name)
         assert slabs == list(range(N_SLABS)), name
+
+    monkeypatch.setattr(stream, "_parses_on", lambda device: True)
+    runtime.reset_spans()
+    node = ["histgrowth", "-H", "-q", "0,0.5,1", "-l", "0,1,2", "-c", "node"]
+    _, text = _profiled(gfa, node)
+    got = runtime.spans()
+    one = _tree(got, set(PARENTS) - {
+        "index.edges", "edge_index", "build.tokenize", "build.pack",
+        "edge_index.wait", "edge_index.adj", "build.edge_pack"})
+    g = GraphStorage(gfa, index_edges=False)
+    lists = g._pw_seq_spans
+    assert one("index.upload") == {"bytes": int(g._pw_ends[-1] - g._pw_starts[0])}
+    assert one("build.stage") == {"bytes": max(e for _, e in lists) - min(b for b, _ in lists)}
+    assert one("abaci_by_total") == {
+        "node_slabs": N_SLABS,
+        "node_slabs_on_device": N_SLABS,
+        "uploads": 1,
+        "uploads_early": 1,
+    }
+    assert one("cli.write") == {"bytes": len(text)}
 
 
 def test_b_untraced_spans_record_nothing(gfa, monkeypatch, caplog):
