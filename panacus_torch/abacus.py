@@ -55,15 +55,14 @@ def build_membership_host(
     exclude check, abacus.rs:736-737)."""
     n_words = max((n_groups + 31) // 32, 1)
     M = np.zeros((n_words, n_items_pad), dtype=np.uint32)
-    native_done = False
-    if path_order and item_table.prefsum is not None:
+    if path_order:
         pids = np.fromiter(
             (p for p, _ in path_order), dtype=np.int64, count=len(path_order)
         )
         gidx = np.fromiter(
             (g for _, g in path_order), dtype=np.int64, count=len(path_order)
         )
-        native_done = build_membership(
+        build_membership(
             item_table.items,
             item_table.prefsum,
             pids,
@@ -71,12 +70,6 @@ def build_membership_host(
             M,
             effective_threads(),
         )
-    if not native_done:
-        for path_id, group_idx in path_order:
-            ids = item_table.path_slice(path_id)
-            if len(ids) == 0:
-                continue
-            M[group_idx >> 5, ids] |= np.uint32(1 << (group_idx & 31))
     if exclude_table is not None:
         excluded = np.flatnonzero(exclude_table.items)
         M[:, excluded] = 0
@@ -382,7 +375,7 @@ class AbacusByGroup:
     def to_tsv(self, total: bool, graph: GraphStorage) -> str:
         """Full or total coverage table (reference: abacus.rs:1056-1178), in
         chunks of dense rows scattered from the sparse counts and formatted
-        by the threaded native formatter (a Python formatter without it)."""
+        by the threaded C formatter (native.format_table)."""
         log.info("reporting coverage table")
         n_groups = len(self.groups)
         items, group_ids, counts = self.sparse_counts()
@@ -427,40 +420,8 @@ class AbacusByGroup:
                 if head == "node"
                 else graph.edge_names_fixed(ids)
             )
-            blob = format_table(vals, names, effective_threads())
-            if blob is None:
-                return header + self._to_tsv_rows_python(
-                    total, graph, items, group_ids, counts, starts, bp
-                )
-            body.append(blob)
+            body.append(format_table(vals, names, effective_threads()))
             if not total:
                 # clear only the cells this chunk scattered (buffer reuse)
                 vals[items[a:b] - lo, group_ids[a:b]] = 0
         return header + b"".join(body).decode("utf-8")
-
-    def _to_tsv_rows_python(
-        self, total, graph, items, group_ids, counts, starts, bp
-    ) -> str:
-        """Row formatter for hosts without the native library."""
-        n_groups = len(self.groups)
-        name_of = (
-            graph.node_name
-            if self.count in (CountType.NODE, CountType.BP)
-            else graph.edge_name
-        )
-        out: List[str] = []
-        for i in range(1, self.engine.n_items + 1):
-            a, b = starts[i - 1], starts[i]
-            out.append(name_of(i))
-            if total:
-                out.append(f"\t{b - a}\n")
-                continue
-            row = np.zeros(n_groups, dtype=np.int64)
-            mult = counts[a:b]
-            if bp is not None:
-                mult = mult * bp[i]
-            row[group_ids[a:b]] = mult
-            out.append("\t")
-            out.append("\t".join(str(x) for x in row))
-            out.append("\n")
-        return "".join(out)

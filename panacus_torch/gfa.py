@@ -29,9 +29,6 @@ configure_host_memory()
 PATHID_PANSN = re.compile(r"^([^#]+)(#[^#]+)?(#[^#].*)?$")
 PATHID_COORDS = re.compile(r"^(.+):([0-9]+)-([0-9]+)$")
 
-FORWARD = 0
-BACKWARD = 1
-
 
 @dataclass(frozen=True)
 class PathSegment:
@@ -190,44 +187,6 @@ def _read_all(gfa_file: str):
         return data
 
 
-def _parse_ints_from_spans(
-    buf: np.ndarray, starts: np.ndarray, ends: np.ndarray
-) -> Optional[np.ndarray]:
-    """Decimal parse of byte spans [start, end). Returns None if any span
-    contains a non-digit or is empty. Native single-pass when available,
-    numpy digit-position passes otherwise."""
-    n = len(starts)
-    if n == 0:
-        return np.zeros(0, dtype=np.int64)
-    if n >= 1024:
-        from .native import parse_int_spans
-
-        lens = ends - starts
-        if (lens > 0).all() and lens.max() <= 18:
-            res = parse_int_spans(buf, starts, ends)
-            if res is not None:
-                return res
-        else:
-            return None
-    lens = ends - starts
-    if (lens <= 0).any():
-        return None
-    max_len = int(lens.max())
-    if max_len > 18:
-        return None
-    vals = np.zeros(n, dtype=np.int64)
-    p10 = np.int64(1)
-    for k in range(max_len):
-        active = lens > k
-        pos = ends[active] - 1 - k
-        d = buf[pos].astype(np.int64) - 48
-        if len(d) and ((d < 0) | (d > 9)).any():
-            return None
-        vals[active] += d * p10
-        p10 *= 10
-    return vals
-
-
 class ItemTable:
     """CSR of path -> item ids (reference: src/util.rs:80-93).
 
@@ -351,42 +310,14 @@ class GraphStorage:
         from .runtime import effective_threads
 
         with span("index.scan", bytes=len(buf)) as sp:
-            # the global tab index is only needed by the numpy fallback
-            # parsers; native field parsers (pt_s_spans / pt_index_edges /
-            # pt_tokenize) re-scan their own lines, so skip its ~8 bytes of
-            # writes per tab and materialize it lazily (_tabs property).
-            # (The lazy path re-runs the scan — acceptable: it only triggers
-            # for non-native fallbacks, e.g. non-integer node names, whose
-            # per-line numpy parsing dwarfs one extra threaded scan. With no
-            # native lib at all, scan_lines returns None and the flatnonzero
-            # fallback below fills both arrays in this one pass.)
-            scanned = scan_lines(buf, effective_threads(), want_tabs=False)
-            if scanned is not None:
-                nl, tabs = scanned
-            else:
-                nl = np.flatnonzero(buf == 10)
-                tabs = np.flatnonzero(buf == 9)
-            cls = classify_lines(buf, nl) if scanned is not None else None
-            if cls is not None:
-                # one C pass (~6 ops/line) instead of four full-width
-                # numpy temporaries
-                starts, ends, first = cls
-            else:
-                starts = np.empty(len(nl), dtype=np.int64)
-                if len(nl):
-                    starts[0] = 0
-                    starts[1:] = nl[:-1] + 1
-                ends = nl  # position of '\n'
-                # strip trailing '\r'
-                ends_stripped = ends - (buf[np.maximum(ends - 1, 0)] == 13)
-                nonempty = ends_stripped > starts
-                starts, ends = starts[nonempty], ends_stripped[nonempty]
-                first = buf[starts]
+            # newlines only: the field parsers (pt_s_spans / pt_index_edges /
+            # pt_tokenize) scan their own lines for tabs. One C pass (~6
+            # ops/line) then gives the non-empty, CR-stripped line spans
+            nl = scan_lines(buf, effective_threads())
+            starts, ends, first = classify_lines(buf, nl)
             sp.add(lines=len(starts))
         self._line_starts = starts
         self._line_ends = ends
-        self._tabs_arr = tabs
-        self._tabs_lock = threading.Lock()
         self._name_hash_lock = threading.Lock()
 
         log.info(
@@ -427,8 +358,6 @@ class GraphStorage:
             log.warning("graph does not contain any annotated paths (P/W lines)")
 
         self._edge_count = 0
-        self._edge_keys_sorted: Optional[np.ndarray] = None
-        self._edge_ids_sorted: Optional[np.ndarray] = None
         self._edge_hash = None
         self._edge_adj = None
         self._edges_u = self._edges_o1 = None
@@ -436,7 +365,7 @@ class GraphStorage:
         self._degree: Optional[np.ndarray] = None
         self._edge_future = None
         if index_edges:
-            # L-line indexing runs in a worker thread (the native parser
+            # L-line indexing runs in a worker thread (the C indexer
             # releases the GIL), overlapping with the caller's path
             # tokenization — on a 2-core box this hides most of the edge
             # index cost behind the streamed membership build. Every edge
@@ -458,28 +387,6 @@ class GraphStorage:
 
                 self._edge_future = ex.submit(_index_job, starts[is_l], ends[is_l])
                 ex.shutdown(wait=False)
-
-    @property
-    def _tabs(self) -> np.ndarray:
-        """Global tab-position index, materialized on first use — only the
-        numpy fallback parsers read it; the native field parsers re-scan
-        their own lines."""
-        # lock: the async edge-index worker and the main thread can both
-        # fall back here concurrently; without it the full scan runs twice
-        with self._tabs_lock:
-            if self._tabs_arr is None:
-                from .native import scan_lines
-                from .runtime import effective_threads
-
-                scanned = scan_lines(
-                    self._buf, effective_threads(), want_tabs=True
-                )
-                self._tabs_arr = (
-                    scanned[1]
-                    if scanned is not None
-                    else np.flatnonzero(self._buf == 9)
-                )
-        return self._tabs_arr
 
     def _ensure_edges(self) -> None:
         f = self._edge_future
@@ -522,20 +429,19 @@ class GraphStorage:
         return self._edges_o2
 
     def edge_hash(self):
-        """Lazy native hash table over canonical edge keys (or None)."""
+        """The open hash over canonical edge keys that the L-line indexer
+        built (native.index_edges), or None where the graph was indexed
+        without edges."""
         self._ensure_edges()
-        if self._edge_hash is None and self._edge_keys_sorted is not None:
-            from .native import build_edge_hash
-
-            self._edge_hash = build_edge_hash(
-                self._edge_keys_sorted, self._edge_ids_sorted
-            )
         return self._edge_hash
 
     def edge_adj(self):
-        """Lazy native CSR adjacency over canonical source nodes (or None):
-        the cache-friendly lookup structure for the hot path itemizer (the
-        open hash costs a random DRAM miss per pair on large graphs)."""
+        """Lazy CSR adjacency over canonical source nodes: the
+        cache-friendly lookup structure for the hot path itemizer (the
+        open hash costs a random DRAM miss per pair on large graphs).
+        None without an edge index, and where the graph is past the
+        adjacency's packed layout (native.build_edge_adj): the open hash
+        serves then."""
         self._ensure_edges()
         if self._edge_adj is None and self._edges_u is not None:
             from .native import build_edge_adj
@@ -558,29 +464,12 @@ class GraphStorage:
 
         n = len(s_starts)
         name_starts = s_starts + 2
-        # the decimal-name parse rides the same cache-hot native pass
-        res = s_spans(
+        # the decimal-name parse rides the same cache-hot C pass (ints is
+        # None where a name is not an integer)
+        name_ends, seq_lens, ints = s_spans(
             self._buf, s_starts, s_ends, effective_threads(),
             want_ints=True,
         )
-        if res is not None:
-            name_ends, seq_lens = res[0], res[1]
-        else:
-            tabs = self._tabs
-            # first tab of an S line is at s+1; name spans (s+2, t2)
-            t2_idx = np.searchsorted(tabs, s_starts + 2)
-            t2 = tabs[t2_idx] if n else np.zeros(0, dtype=np.int64)
-            # sequence ends at following tab (optional fields) or line end
-            t3_idx = t2_idx + 1
-            t3 = np.where(
-                (t3_idx < len(tabs)) & (np.take(tabs, np.minimum(t3_idx, len(tabs) - 1)) < s_ends),
-                np.take(tabs, np.minimum(t3_idx, len(tabs) - 1)),
-                s_ends,
-            ) if n else np.zeros(0, dtype=np.int64)
-            name_ends = t2
-            seq_lens = (t3 - (t2 + 1)).astype(np.int64)
-            if (seq_lens < 0).any():
-                raise ValueError("malformed S line in GFA")
 
         self.node_count = n
         self.node_lens = np.zeros(n + 1, dtype=np.uint32)
@@ -590,11 +479,7 @@ class GraphStorage:
         self._node2id: Optional[Dict[bytes, int]] = None
         self._int_names: Optional[np.ndarray] = None
         self._name_spans = (name_starts, name_ends)
-        self._name_hash_cache = False  # lazily built for string-name graphs
-        if res is not None:
-            ints = res[2]
-        else:
-            ints = _parse_ints_from_spans(self._buf, name_starts, name_ends)
+        self._name_hash_cache = None  # lazily built for string-name graphs
         if ints is not None:
             self._int_names = ints
             if n and bool((ints == np.arange(1, n + 1)).all()):
@@ -712,7 +597,7 @@ class GraphStorage:
         path_indices: Optional[np.ndarray] = None,
         pack: Optional[dict] = None,
     ):
-        """Tokenize P/W lines in one threaded native call — every line, or
+        """Tokenize P/W lines in one threaded C call — every line, or
         only `path_indices` (multi-host ingest: each host tokenizes its
         slice of the path set; see parallel/ingest.py).
 
@@ -723,8 +608,9 @@ class GraphStorage:
 
         Returns (ids, orient, prefsum, bp_per_path) over the selected paths
         (path k of the selection spans ids[prefsum[k]:prefsum[k+1]]), or
-        None when the native path doesn't apply (non-integer names, no
-        native lib) — callers fall back to path_item_run."""
+        None where the graph has no P/W line, or a step list is malformed
+        or names an unknown node: callers then parse path by path
+        (path_item_run), which raises the user-facing error."""
         if not len(self._pw_starts):
             return None
         from .native import tokenize_batch
@@ -741,10 +627,7 @@ class GraphStorage:
             n_threads=effective_threads(),
         )
         if self._int_name_mode is None:
-            nh = self.name_hash()
-            if nh is None:
-                return None
-            kwargs.update(mode=3, name_hash=nh)
+            kwargs.update(mode=3, name_hash=self.name_hash())
         elif self._int_name_mode != "identity":
             kwargs.update(
                 mode=2,
@@ -797,13 +680,12 @@ class GraphStorage:
         return self._int_name_mode == "identity"
 
     def name_hash(self):
-        """Native open-addressing hash over the S-line name spans (string-
-        named graphs: tokenize_batch mode 3). Built once, None when the
-        native lib is unavailable."""
+        """Open-addressing hash over the S-line name spans (string-named
+        graphs: tokenize_batch and index_edges mode 3), built once."""
         # lock: the async edge-index worker and the main-thread tokenizer
         # can both trigger the first build concurrently
         with self._name_hash_lock:
-            if self._name_hash_cache is False:
+            if self._name_hash_cache is None:
                 from .native import build_name_hash
 
                 ns, ne = self._name_spans
@@ -812,20 +694,14 @@ class GraphStorage:
                 )
         return self._name_hash_cache
 
-    def batch_tokenizable(self) -> bool:
-        """True when all_path_item_runs can run natively (int names, or
-        string names with the native name hash)."""
-        if self._int_name_mode is not None:
-            from .native import get_lib
-
-            return get_lib() is not None
-        return self.name_hash() is not None
-
     def path_item_run(self, path_idx: int) -> Tuple[np.ndarray, np.ndarray]:
         """Item ids + orientations (0 fwd / 1 bwd) of one P/W line, vectorized.
 
         Equivalent of reference parse_path_seq_to_item_vec /
         parse_walk_seq_to_item_vec (src/graph_broker/util.rs:797-1016).
+        Integer steps go through one C call; string names, and a step list
+        that the C parse refuses, through numpy, which raises the
+        user-facing error on a malformed step.
         """
         a, b = self._pw_seq_spans[path_idx]
         buf = self._buf
@@ -872,7 +748,9 @@ class GraphStorage:
             orient = (ochars == 45).astype(np.uint8)
             tok_ends = tok_full_ends - 1
         if self._int_name_mode is not None:
-            vals = _parse_ints_from_spans(buf, tok_starts, tok_ends)
+            from .native import parse_int_spans
+
+            vals = parse_int_spans(buf, tok_starts, tok_ends)
             if vals is None:
                 raise ValueError(
                     f"malformed node id in path {self.path_segments[path_idx]}"
@@ -896,124 +774,36 @@ class GraphStorage:
     # -- edges ----------------------------------------------------------------
 
     def _index_edges(self, l_starts: np.ndarray, l_ends: np.ndarray) -> None:
-        """Canonical edge table from L lines
+        """Canonical edge table from L lines in one C pass
         (reference: src/graph_broker/graph.rs:276-306, Edge::canonical
         graph.rs:142-148). Edge ids are assigned in first-occurrence order."""
-        buf = self._buf
-        n = len(l_starts)
-        if n == 0:
-            self._edge_count = 0
-            self._degree = np.zeros(self.node_count + 1, dtype=np.uint32)
-            self._edge_keys_sorted = np.zeros(0, dtype=np.uint64)
-            self._edge_ids_sorted = np.zeros(0, dtype=np.int64)
-            self._edges_u = np.zeros(0, np.int64)
-            self._edges_o1 = np.zeros(0, np.uint8)
-            self._edges_v = np.zeros(0, np.int64)
-            self._edges_o2 = np.zeros(0, np.uint8)
-            return
-        res = None
-        if self._int_name_mode is not None:
-            from .native import index_edges
+        from .native import index_edges
 
-            res = index_edges(
-                buf,
-                l_starts,
-                l_ends,
-                1 if self._int_name_mode == "identity" else 2,
-                self.node_count,
-                getattr(self, "_int_sorted", None),
-                getattr(self, "_int_sorted_ids", None),
-            )
+        if self._int_name_mode is None:
+            mode, nh = 3, self.name_hash()
         else:
-            nh = self.name_hash()
-            if nh is not None:
-                from .native import index_edges
-
-                res = index_edges(
-                    buf,
-                    l_starts,
-                    l_ends,
-                    3,
-                    self.node_count,
-                    None,
-                    None,
-                    name_hash=nh,
-                )
-        if res is not None:
-            (
-                self._edge_hash,
-                self._edges_u,
-                self._edges_o1,
-                self._edges_v,
-                self._edges_o2,
-                self._degree,
-                n_dup,
-            ) = res
-            self._edge_count = len(self._edges_u)
-            if n_dup:
-                log.warning("%d duplicated edges in GFA", n_dup)
-            log.info("found: %d edges", self._edge_count)
-            return
-        tabs = self._tabs  # numpy fallback: materializes the lazy index
-        ti = np.searchsorted(tabs, l_starts)
-        t1 = tabs[ti]
-        t2 = tabs[ti + 1]
-        t3 = tabs[ti + 2]
-        t4 = tabs[ti + 3]
-        t5i = ti + 4
-        t5 = np.where(
-            (t5i < len(tabs)) & (np.take(tabs, np.minimum(t5i, len(tabs) - 1)) < l_ends),
-            np.take(tabs, np.minimum(t5i, len(tabs) - 1)),
+            mode, nh = (1 if self._int_name_mode == "identity" else 2), None
+        (
+            self._edge_hash,
+            self._edges_u,
+            self._edges_o1,
+            self._edges_v,
+            self._edges_o2,
+            self._degree,
+            n_dup,
+        ) = index_edges(
+            self._buf,
+            l_starts,
             l_ends,
+            mode,
+            self.node_count,
+            getattr(self, "_int_sorted", None),
+            getattr(self, "_int_sorted_ids", None),
+            name_hash=nh,
         )
-        u_names = (t1 + 1, t2)
-        v_names = (t3 + 1, t4)
-        o1 = (buf[t2 + 1] == 45).astype(np.uint8)
-        o2 = (buf[t4 + 1] == 45).astype(np.uint8)
-
-        if self._int_name_mode is not None:
-            uv = _parse_ints_from_spans(buf, u_names[0], u_names[1])
-            vv = _parse_ints_from_spans(buf, v_names[0], v_names[1])
-            if uv is None or vv is None:
-                raise ValueError("malformed L line node name")
-            u = self._ids_from_int_names(uv, "L line")
-            v = self._ids_from_int_names(vv, "L line")
-        else:
-            d = self._node2id
-            data = self._data
-            u = np.fromiter(
-                (d[bytes(data[int(s) : int(e)])] for s, e in zip(u_names[0], u_names[1])),
-                dtype=np.int64,
-                count=n,
-            )
-            v = np.fromiter(
-                (d[bytes(data[int(s) : int(e)])] for s, e in zip(v_names[0], v_names[1])),
-                dtype=np.int64,
-                count=n,
-            )
-
-        cu, co1, cv, co2 = canonical_edges(u, o1, v, o2)
-        keys = edge_keys(cu, co1, cv, co2)
-        uniq, first_idx = np.unique(keys, return_index=True)
-        n_dup = n - len(uniq)
+        self._edge_count = len(self._edges_u)
         if n_dup:
             log.warning("%d duplicated edges in GFA", n_dup)
-        order = np.argsort(first_idx, kind="stable")
-        ids_sorted = np.empty(len(uniq), dtype=np.int64)
-        ids_sorted[order] = np.arange(1, len(uniq) + 1)
-        self._edge_keys_sorted = uniq
-        self._edge_ids_sorted = ids_sorted
-        self._edge_count = len(uniq)
-        # per unique edge endpoints, in id order
-        inv_order = first_idx[order]
-        self._edges_u = cu[inv_order]
-        self._edges_o1 = co1[inv_order]
-        self._edges_v = cv[inv_order]
-        self._edges_o2 = co2[inv_order]
-        self._degree = (
-            np.bincount(self._edges_u, minlength=self.node_count + 1)
-            + np.bincount(self._edges_v, minlength=self.node_count + 1)
-        ).astype(np.uint32)
         log.info("found: %d edges", self._edge_count)
 
     def edge_ids_for_pairs(
@@ -1025,30 +815,28 @@ class GraphStorage:
     ) -> np.ndarray:
         """Canonical edge id lookup for oriented node pairs (vectorized)."""
         self._ensure_edges()
-        if self._edge_hash is not None:
-            from .native import lookup_pairs
-
-            res = lookup_pairs(u, o1, v, o2, self._edge_hash)
-            if res is not None:
-                return res
-        if self._edge_keys_sorted is None:
+        if self._edge_hash is None:
             raise ValueError("edge index unavailable")
-        cu, co1, cv, co2 = canonical_edges(u, o1, v, o2)
-        keys = edge_keys(cu, co1, cv, co2)
-        if len(self._edge_keys_sorted) == 0:
-            bad = np.ones(len(keys), dtype=bool)
-            idx_c = np.zeros(len(keys), dtype=np.int64)
-        else:
-            idx = np.searchsorted(self._edge_keys_sorted, keys)
-            idx_c = np.minimum(idx, len(self._edge_keys_sorted) - 1)
-            bad = self._edge_keys_sorted[idx_c] != keys
-        if np.any(bad):
-            i = int(np.flatnonzero(bad)[0])
-            raise ValueError(
-                f"unknown edge {'<' if co1[i] else '>'}{cu[i]}"
-                f"{'<' if co2[i] else '>'}{cv[i]}"
-            )
-        return self._edge_ids_sorted[idx_c]
+        from .native import lookup_pairs
+
+        return lookup_pairs(u, o1, v, o2, self._edge_hash)
+
+    def edge_runs(
+        self, ids: np.ndarray, orient: np.ndarray, prefsum: np.ndarray
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """(eids, e_pref): the canonical edge ids of every consecutive pair
+        of every run of the node CSR (ids, orient, prefsum), as a CSR
+        itself. Through the CSR adjacency, or the open hash where the
+        graph is past the adjacency's layout."""
+        if len(ids) == 0:
+            return np.zeros(0, np.int64), prefsum.copy()
+        from .native import lookup_edges, lookup_edges_adj
+        from .runtime import effective_threads
+
+        adj = self.edge_adj()
+        if adj is not None:
+            return lookup_edges_adj(ids, orient, prefsum, adj, effective_threads())
+        return lookup_edges(ids, orient, prefsum, self.edge_hash(), effective_threads())
 
     def node_names_fixed(self, ids: np.ndarray) -> np.ndarray:
         """Fixed-width byte names for a batch of node ids (NUL-padded) —
@@ -1068,7 +856,7 @@ class GraphStorage:
     def edge_names_fixed(self, eids: np.ndarray) -> np.ndarray:
         """Fixed-width byte names '<u><v' style for a batch of edge ids.
         Name blocks are NUL-padded internally; consumers treat NUL as
-        padding anywhere in the cell (native format_table does)."""
+        padding anywhere in the cell (native.format_table does)."""
         i = np.asarray(eids, dtype=np.int64) - 1
         u = self.edges_u[i]
         v = self.edges_v[i]
@@ -1094,27 +882,3 @@ class GraphStorage:
             f"{o1}{self.node_name(int(self.edges_u[i]))}"
             f"{o2}{self.node_name(int(self.edges_v[i]))}"
         )
-
-
-def canonical_edges(
-    u: np.ndarray, o1: np.ndarray, v: np.ndarray, o2: np.ndarray
-) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-    """Vectorized Edge::canonical (reference: src/graph_broker/graph.rs:142-148):
-    flip when u > v, or u == v and o1 is backward."""
-    flip = (u > v) | ((u == v) & (o1 == BACKWARD))
-    cu = np.where(flip, v, u)
-    co1 = np.where(flip, o2 ^ 1, o1).astype(np.uint8)
-    cv = np.where(flip, u, v)
-    co2 = np.where(flip, o1 ^ 1, o2).astype(np.uint8)
-    return cu, co1, cv, co2
-
-
-def edge_keys(
-    u: np.ndarray, o1: np.ndarray, v: np.ndarray, o2: np.ndarray
-) -> np.ndarray:
-    return (
-        (u.astype(np.uint64) << np.uint64(33))
-        | (v.astype(np.uint64) << np.uint64(2))
-        | (o1.astype(np.uint64) << np.uint64(1))
-        | o2.astype(np.uint64)
-    )

@@ -40,9 +40,10 @@ class ItemizeResult:
 
 
 def _prefetch_runs(graph: GraphStorage, indices, runs: List, n_workers: int):
-    """Tokenize the given path indices concurrently into `runs` (the
-    fallback parallel axis when the native batch tokenizer is unavailable;
-    counterpart of the reference's rayon par_split, util.rs:1206-1229)."""
+    """Tokenize the given path indices concurrently into `runs`, one path
+    a task, where the batch tokenizer refused a step list: each path's own
+    parse then raises the user-facing error, or takes the list
+    (counterpart of the reference's rayon par_split, util.rs:1206-1229)."""
     indices = list(indices)
     if n_workers > 1 and len(indices) > 1:
         from concurrent.futures import ThreadPoolExecutor
@@ -102,10 +103,10 @@ def itemize_paths(
     has_include = mask.include_coords is not None
     has_exclude = mask.exclude_coords is not None
 
-    # tokenize paths concurrently: one threaded native batch call writing
-    # straight into contiguous CSR storage when possible, else a thread pool
-    # over per-path tokenization (the counterpart of the reference's rayon
-    # par_split, util.rs:1206-1229)
+    # tokenize paths concurrently: one threaded C batch call writing
+    # straight into contiguous CSR storage, or, where it refuses a step
+    # list, a thread pool over per-path tokenization (the counterpart of
+    # the reference's rayon par_split, util.rs:1206-1229)
     from .runtime import effective_threads
 
     n_workers = min(effective_threads(), max(n_paths, 1))
@@ -162,43 +163,8 @@ def itemize_paths(
             if eff_count != CountType.EDGE:
                 any_non_edge = True
                 table.adopt(b_ids, b_pref)
-            elif len(b_ids):
-                from .native import lookup_edges, lookup_edges_adj
-                from .runtime import effective_threads
-
-                res = lookup_edges_adj(
-                    b_ids,
-                    b_orient,
-                    b_pref,
-                    graph.edge_adj(),
-                    effective_threads(),
-                )
-                if res is None:
-                    res = lookup_edges(
-                        b_ids,
-                        b_orient,
-                        b_pref,
-                        graph.edge_hash(),
-                        effective_threads(),
-                    )
-                if res is not None:
-                    table.adopt(*res)
-                else:
-                    nz = counts > 0
-                    keep = np.ones(len(b_ids), dtype=bool)
-                    keep[b_pref[1:][nz] - 1] = False
-                    idx = np.flatnonzero(keep)
-                    eids = graph.edge_ids_for_pairs(
-                        b_ids[idx],
-                        b_orient[idx],
-                        b_ids[idx + 1],
-                        b_orient[idx + 1],
-                    )
-                    e_pref = np.zeros(n_paths + 1, dtype=np.int64)
-                    np.cumsum(np.maximum(counts, 1) - 1, out=e_pref[1:])
-                    table.adopt(eids, e_pref)
             else:
-                table.adopt(np.zeros(0, np.int64), b_pref.copy())
+                table.adopt(*graph.edge_runs(b_ids, b_orient, b_pref))
         if any_non_edge:
             for i, path_seg in enumerate(graph.path_segments):
                 paths_len[path_seg] = (int(counts[i]), int(b_bp[i]))
@@ -367,139 +333,59 @@ def _update_tables(
     (reference: src/graph_broker/util.rs:412-567): nodes overlapping an
     include interval are pushed (once per overlapping interval), partial bp
     coverage is tracked in subset_covered_bps, exclusion marks nodes in
-    exclude tables (annotated for bp). The hot walk runs in C when
-    available (native.pt_interval_walk) with a compressed event stream;
-    this Python loop is the exact fallback."""
+    exclude tables (annotated for bp). The walk runs in C
+    (native.interval_walk, a bit-exact port of the reference's loop) and
+    returns a compressed event stream, which this replays into the
+    interval containers."""
     track = (
         getattr(subset_covered_bps, "_mh_track", None)
         if subset_covered_bps is not None
         else None
     )
     pos_base = visit_position_base(num_path, len(ids)) if track is not None else 0
-    if len(ids):
-        from .native import interval_walk
-
-        cov_present = None
-        if subset_covered_bps is not None:
-            cov_present = getattr(subset_covered_bps, "_present", None)
-            if cov_present is None:
-                cov_present = np.zeros(len(graph.node_lens), dtype=np.uint8)
-                if subset_covered_bps.map:
-                    cov_present[list(subset_covered_bps.map.keys())] = 1
-                subset_covered_bps._present = cov_present
-        res = interval_walk(
-            ids,
-            orient,
-            graph.node_lens,
-            include_coords,
-            exclude_coords,
-            offset,
-            cov_present,
-            pos_base=pos_base,
-            last_full=track[0] if track is not None else None,
-        )
-        if res is None and cov_present is not None:
-            # the C walker mutates the bitmap in place as it goes; if it
-            # aborted mid-walk (capacity overflow) the bits it already
-            # flipped were never replayed into the interval map — rebuild
-            # the cache from the authoritative map before falling back
-            cov_present[:] = 0
-            if subset_covered_bps.map:
-                cov_present[list(subset_covered_bps.map.keys())] = 1
-        if res is not None:
-            pushed_arr, cov_ev, exc_ev, included_bp = res
-            item_table.append(num_path, pushed_arr)
-            if subset_covered_bps is not None:
-                for sid, a, b, kind, pos in cov_ev.tolist():
-                    if kind:
-                        subset_covered_bps.remove(sid)
-                    else:
-                        subset_covered_bps.add(sid, a, b)
-                        if track is not None:
-                            track[1].append((pos, sid, a, b))
-            node_lens_l = graph.node_lens
-            for sid, a, b in exc_ev.tolist():
-                l = int(node_lens_l[sid])
-                for ex in exclude_tables:
-                    if ex is not None:
-                        if ex.with_annotation():
-                            ex.activate_n_annotate(sid, l, a, b)
-                        else:
-                            ex.activate(sid)
-            return len(pushed_arr), included_bp
-    i = 0
-    j = 0
-    p = offset
-    included = 0
-    included_bp = 0
-
     if len(ids) == 0:
         item_table.close_path(num_path)
         return 0, 0
+    from .native import interval_walk
 
-    node_lens = graph.node_lens
-    pushed: List[int] = []
-    n_inc = len(include_coords)
-    n_exc = len(exclude_coords)
-
-    for k_i, (sid, o) in enumerate(zip(ids.tolist(), orient.tolist())):
-        l = int(node_lens[sid])
-
-        stop_here = False
-        while i < n_inc and include_coords[i][0] < p + l and not stop_here:
-            if include_coords[i][1] > p:
-                a = include_coords[i][0] - p if include_coords[i][0] > p else 0
-                if include_coords[i][1] < p + l:
-                    i += 1
-                    b = include_coords[i - 1][1] - p
-                else:
-                    stop_here = True
-                    b = l
-                if o == 1:  # backward
-                    a, b = l - b, l - a
-                pushed.append(sid)
-                if subset_covered_bps is not None:
-                    if b - a == l:
-                        if track is not None:
-                            track[0][sid] = pos_base + k_i
-                        if subset_covered_bps.contains(sid):
-                            subset_covered_bps.remove(sid)
-                    else:
-                        subset_covered_bps.add(sid, a, b)
-                        if track is not None:
-                            track[1].append((pos_base + k_i, sid, a, b))
-                included += 1
-                included_bp += b - a
+    cov_present = None
+    if subset_covered_bps is not None:
+        cov_present = getattr(subset_covered_bps, "_present", None)
+        if cov_present is None:
+            cov_present = np.zeros(len(graph.node_lens), dtype=np.uint8)
+            if subset_covered_bps.map:
+                cov_present[list(subset_covered_bps.map.keys())] = 1
+            subset_covered_bps._present = cov_present
+    pushed_arr, cov_ev, exc_ev, included_bp = interval_walk(
+        ids,
+        orient,
+        graph.node_lens,
+        include_coords,
+        exclude_coords,
+        offset,
+        cov_present,
+        pos_base=pos_base,
+        last_full=track[0] if track is not None else None,
+    )
+    item_table.append(num_path, pushed_arr)
+    if subset_covered_bps is not None:
+        for sid, a, b, kind, pos in cov_ev.tolist():
+            if kind:
+                subset_covered_bps.remove(sid)
             else:
-                i += 1
-
-        stop_here = False
-        while j < n_exc and exclude_coords[j][0] < p + l and not stop_here:
-            if exclude_coords[j][1] > p:
-                a = exclude_coords[j][0] - p if exclude_coords[j][0] > p else 0
-                if exclude_coords[j][1] < p + l:
-                    j += 1
-                    b = exclude_coords[j - 1][1] - p
+                subset_covered_bps.add(sid, a, b)
+                if track is not None:
+                    track[1].append((pos, sid, a, b))
+    node_lens_l = graph.node_lens
+    for sid, a, b in exc_ev.tolist():
+        l = int(node_lens_l[sid])
+        for ex in exclude_tables:
+            if ex is not None:
+                if ex.with_annotation():
+                    ex.activate_n_annotate(sid, l, a, b)
                 else:
-                    stop_here = True
-                    b = l
-                if o == 1:
-                    a, b = l - b, l - a
-                for ex in exclude_tables:
-                    if ex is not None:
-                        if ex.with_annotation():
-                            ex.activate_n_annotate(sid, l, a, b)
-                        else:
-                            ex.activate(sid)
-            else:
-                j += 1
-
-        if i >= n_inc and j >= n_exc:
-            break
-        p += l
-
-    item_table.append(num_path, np.array(pushed, dtype=np.int64))
-    return included, included_bp
+                    ex.activate(sid)
+    return len(pushed_arr), included_bp
 
 
 def _update_tables_edgecount(

@@ -1,8 +1,9 @@
-"""Native host accelerators (C, via ctypes).
+"""The port's C layer (gfa_scan.c, via ctypes).
 
-Compiled on demand from gfa_scan.c into a cached shared library; every
-entry point has a numpy fallback so the framework works without a C
-toolchain.
+The host front end and the stream build run through it and nothing else:
+get_lib() compiles gfa_scan.c into a cached shared library on first use,
+as the CUDA sources are compiled, and raises where it cannot. Importing
+the package builds nothing.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import logging
 import os
 import platform
 import subprocess
-import sys
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -21,19 +22,24 @@ import numpy as np
 log = logging.getLogger("panacus")
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "gfa_scan.c")
-_LIB = None
-_TRIED = False
+_LIB: Optional[ctypes.CDLL] = None
+_LIB_LOCK = threading.Lock()
 
 
-def _build_lib() -> Optional[ctypes.CDLL]:
-    try:
-        with open(_SRC, "rb") as f:
-            src = f.read()
-    except OSError:
-        return None
+def _build_error(cc: str, e: Exception) -> RuntimeError:
+    tail = (getattr(e, "stderr", None) or b"").decode(errors="replace").strip()
+    return RuntimeError(
+        f"cannot build {_SRC} with the C compiler {cc!r} ($CC, else cc): {e}"
+        + (f"\n{tail[-2000:]}" if tail else "")
+    )
+
+
+def _build_lib() -> ctypes.CDLL:
+    with open(_SRC, "rb") as f:
+        src = f.read()
     # key the cache by CPU identity too: -march=native artifacts must never
     # be served to a different microarchitecture (shared ~/.cache, container
-    # images) — a stale .so would SIGILL instead of falling back
+    # images) — a stale .so would SIGILL
     cpu_id = platform.machine()
     try:
         with open("/proc/cpuinfo", "rb") as f:
@@ -70,7 +76,6 @@ def _build_lib() -> Optional[ctypes.CDLL]:
         ]
         # compiled on demand on the machine that runs it, so -march=native
         # is safe; retry portable if the toolchain rejects it
-        built = False
         for extra in (["-march=native"], []):
             try:
                 subprocess.run(
@@ -79,19 +84,17 @@ def _build_lib() -> Optional[ctypes.CDLL]:
                     capture_output=True,
                     timeout=120,
                 )
-                os.replace(tmp, so_path)
-                built = True
-                break
-            except Exception as e:
-                log.debug("native build attempt failed (%s)", e)
-        if not built:
-            log.debug("native build failed; using numpy fallback")
-            return None
+            except (OSError, subprocess.SubprocessError) as e:
+                err = _build_error(cc, e)
+                continue
+            os.replace(tmp, so_path)
+            break
+        else:
+            raise err
     try:
         lib = ctypes.CDLL(so_path)
     except OSError as e:
-        log.debug("native load failed (%s); using numpy fallback", e)
-        return None
+        raise RuntimeError(f"cannot load the C layer {so_path}: {e}") from e
     i64 = ctypes.c_int64
     u8p = ctypes.POINTER(ctypes.c_uint8)
     i64p = ctypes.POINTER(ctypes.c_int64)
@@ -146,11 +149,6 @@ def _build_lib() -> Optional[ctypes.CDLL]:
         u64p, ctypes.c_int32,  # slots (interleaved), log2_slots
         i64p, i64p,      # out_eids, out_pref
         ctypes.c_int32,  # n_threads
-    ]
-    lib.pt_build_edge_hash.restype = None
-    lib.pt_build_edge_hash.argtypes = [
-        u64p, i64p, i64,  # keys, eids, n
-        u64p, ctypes.c_int32,  # slots (interleaved), log2_slots
     ]
     lib.pt_build_edge_adj.restype = None
     lib.pt_build_edge_adj.argtypes = [
@@ -321,14 +319,15 @@ def install_thread_allocator() -> None:
             pass
 
 
-def get_lib() -> Optional[ctypes.CDLL]:
-    global _LIB, _TRIED
-    if not _TRIED:
-        _TRIED = True
-        if os.environ.get("PANACUS_TPU_NO_NATIVE") != "1":
+def get_lib() -> ctypes.CDLL:
+    """The C layer, built (or found in the cache) and loaded on the first
+    call of a process. Raises RuntimeError where the compiler cannot build
+    it or the library does not load; a later call tries again."""
+    global _LIB
+    with _LIB_LOCK:  # the edge indexer's thread may ask at the same time
+        if _LIB is None:
             _LIB = _build_lib()
-            if _LIB is not None:
-                log.debug("native gfa_scan loaded")
+            log.debug("native gfa_scan loaded")
     return _LIB
 
 
@@ -345,13 +344,12 @@ _DEFLATE_TRIED = False
 def _get_libdeflate():
     """System libdeflate, whose whole-buffer inflate runs ~2.5-3x faster
     than zlib's streaming inflate (measured 600-700 vs 257 MB/s on the
-    bench graph). Optional: gzip ingest falls back to the zlib stream."""
+    bench graph), or None where the system has none: gzip ingest then
+    inflates through the zlib stream."""
     global _DEFLATE, _DEFLATE_TRIED
     if _DEFLATE_TRIED:
         return _DEFLATE
     _DEFLATE_TRIED = True
-    if os.environ.get("PANACUS_TPU_NO_LIBDEFLATE") == "1":
-        return None
     for name in ("libdeflate.so.0", "libdeflate.so", "libdeflate.dylib"):
         try:
             lib = ctypes.CDLL(name)
@@ -381,10 +379,10 @@ def gzip_decompress_buffer(raw: np.ndarray, size_hint: int) -> Optional[bytearra
     into one bytearray. Returns None when libdeflate is unavailable or the
     stream is malformed (caller falls back to the zlib path, which raises
     the user-facing error)."""
-    lib = _get_libdeflate()
-    if lib is None or len(raw) < 18:
+    dl = _get_libdeflate()
+    if dl is None or len(raw) < 18:
         return None
-    d = lib.libdeflate_alloc_decompressor()
+    d = dl.libdeflate_alloc_decompressor()
     if not d:
         return None
     try:
@@ -405,7 +403,7 @@ def gzip_decompress_buffer(raw: np.ndarray, size_hint: int) -> Optional[bytearra
                 view = (ctypes.c_char * (len(out) - out_off)).from_buffer(
                     out, out_off
                 )
-                rc = lib.libdeflate_gzip_decompress_ex(
+                rc = dl.libdeflate_gzip_decompress_ex(
                     d,
                     ctypes.c_void_p(raw_p + in_off),
                     n_in - in_off,
@@ -428,15 +426,14 @@ def gzip_decompress_buffer(raw: np.ndarray, size_hint: int) -> Optional[bytearra
         del out[out_off:]
         return out
     finally:
-        lib.libdeflate_free_decompressor(ctypes.c_void_p(d))
+        dl.libdeflate_free_decompressor(ctypes.c_void_p(d))
 
 
 def parse_int_spans(buf, starts, ends):
-    """C batch parse of integers at [starts[i], ends[i]). Returns int64
-    array or None (unavailable / non-integer content)."""
+    """C batch parse of integers at [starts[i], ends[i]). Returns an int64
+    array, or None where a span is empty, longer than 18 bytes or holds a
+    byte other than a digit."""
     lib = get_lib()
-    if lib is None:
-        return None
     n = len(starts)
     out = np.empty(n, dtype=np.int64)
     if n == 0:
@@ -490,17 +487,16 @@ def tokenize_batch(
     full re-read of the token array.
 
     Returns (ids int64[N], orient uint8[N], prefsum int64[n+1],
-    bp uint64[n] or None) or None when the native lib is unavailable or any
-    span is malformed / contains an unknown name (caller falls back).
+    bp uint64[n] or None), or None where a span is malformed or names an
+    unknown node (the caller parses path by path, GraphStorage.path_item_run,
+    which raises the user-facing error).
 
     CONTRACT: on a None return with `pack_gbit` set, the contents of
     `pack_node_row` / `pack_edge_row` are UNDEFINED — worker threads may
     have already ORed earlier spans into them before the error was hit.
-    Callers must discard (or re-zero) the pack targets and rebuild via the
-    fallback path; they must not merge partially-packed rows."""
+    Callers must discard (or re-zero) the pack targets and rebuild through
+    the per-path parse; they must not merge partially-packed rows."""
     lib = get_lib()
-    if lib is None:
-        return None
     n = len(starts)
     i64p = ctypes.POINTER(ctypes.c_int64)
     u32p = ctypes.POINTER(ctypes.c_uint32)
@@ -614,11 +610,10 @@ def build_name_hash(
 ):
     """Open-addressing hash over S-line name byte spans (load <= 0.5):
     slots int64[S] holding 1-based node ids, 0 = empty. Returns
-    (slots, log2_slots, starts, ends) ready for tokenize_batch mode 3, or
-    None (native unavailable / duplicate name)."""
+    (slots, log2_slots, starts, ends) ready for tokenize_batch mode 3;
+    raises ValueError on a duplicate name (GraphStorage has refused those
+    already)."""
     lib = get_lib()
-    if lib is None:
-        return None
     i64p = ctypes.POINTER(ctypes.c_int64)
     n = len(name_starts)
     log2_slots = max(int(2 * n - 1).bit_length() if n else 4, 4)
@@ -634,7 +629,7 @@ def build_name_hash(
         ctypes.c_int32(log2_slots),
     )
     if rc != 0:
-        return None
+        raise ValueError(f"segment #{-rc - 1} repeats an earlier name")
     return slots, log2_slots, s, e
 
 
@@ -651,13 +646,11 @@ def interval_walk(
 ):
     """C port of the masked per-path interval walk. Returns
     (pushed int64[], cov_events int64[n,5] (sid, a, b, kind, pos),
-    exc_events int64[m,3], included_bp) or None when the native lib is
-    unavailable (caller runs the Python walker). pos_base/last_full: see
+    exc_events int64[m,3], included_bp). pos_base/last_full: see
     pt_interval_walk — global visit positions for the multi-host covered
-    merge."""
+    merge. A node is pushed once per include interval that it ends, and
+    once more, so the buffers (n + intervals + 8) always hold the walk."""
     lib = get_lib()
-    if lib is None:
-        return None
     i64p = ctypes.POINTER(ctypes.c_int64)
     u32p = ctypes.POINTER(ctypes.c_uint32)
     n = len(ids)
@@ -702,7 +695,7 @@ def interval_walk(
         else ctypes.cast(None, i64p),
     )
     if rc < 0:
-        return None
+        raise RuntimeError("pt_interval_walk outgrew its buffers")
     return (
         pushed[:rc],
         cov_ev[: 5 * n_cov.value].reshape(-1, 5),
@@ -711,15 +704,11 @@ def interval_walk(
     )
 
 
-def scan_lines(buf: np.ndarray, n_threads: int = 0, want_tabs: bool = True):
-    """One threaded pass over the GFA buffer collecting newline (and,
-    when want_tabs, tab) positions. Returns (nl int64[], tabs int64[] or
-    None) or None (no native lib). want_tabs=False skips the global tab
-    index — callers whose field parsers re-scan their own lines
-    (pt_s_spans / pt_index_edges / pt_tokenize) never need it."""
+def scan_lines(buf: np.ndarray, n_threads: int = 0) -> np.ndarray:
+    """One threaded pass over the GFA buffer collecting the newline
+    positions (int64[]). The field parsers (pt_s_spans / pt_index_edges /
+    pt_tokenize) scan their own lines for tabs, so no tab index is kept."""
     lib = get_lib()
-    if lib is None:
-        return None
     n = len(buf)
     if n_threads <= 0:
         n_threads = os.cpu_count() or 1
@@ -733,25 +722,10 @@ def scan_lines(buf: np.ndarray, n_threads: int = 0, want_tabs: bool = True):
         counts.ctypes.data_as(i64p),
         ctypes.c_int32(n_threads),
     )
-    nl_counts, tab_counts = counts[:n_ranges], counts[n_ranges:]
+    nl_counts = counts[:n_ranges]
     nl_off = np.zeros(n_ranges, dtype=np.int64)
     np.cumsum(nl_counts[:-1], out=nl_off[1:])
     nl = np.empty(int(nl_counts.sum()), dtype=np.int64)
-    if want_tabs:
-        tab_off = np.zeros(n_ranges, dtype=np.int64)
-        np.cumsum(tab_counts[:-1], out=tab_off[1:])
-        tabs = np.empty(int(tab_counts.sum()), dtype=np.int64)
-        lib.pt_scan_fill(
-            _as_u8p(buf),
-            ctypes.c_int64(n),
-            ctypes.c_int64(n_ranges),
-            nl_off.ctypes.data_as(i64p),
-            tab_off.ctypes.data_as(i64p),
-            nl.ctypes.data_as(i64p),
-            tabs.ctypes.data_as(i64p),
-            ctypes.c_int32(n_threads),
-        )
-        return nl, tabs
     lib.pt_scan_fill(
         _as_u8p(buf),
         ctypes.c_int64(n),
@@ -762,7 +736,7 @@ def scan_lines(buf: np.ndarray, n_threads: int = 0, want_tabs: bool = True):
         None,
         ctypes.c_int32(n_threads),
     )
-    return nl, None
+    return nl
 
 
 def classify_lines(
@@ -770,11 +744,8 @@ def classify_lines(
 ):
     """Non-empty line spans + first bytes from a newline index in one C
     pass (CR-stripped; replaces four full-width numpy temporaries).
-    Returns (starts int64[k], ends int64[k], first uint8[k]) or None when
-    the native lib is unavailable."""
+    Returns (starts int64[k], ends int64[k], first uint8[k])."""
     lib = get_lib()
-    if lib is None:
-        return None
     i64p = ctypes.POINTER(ctypes.c_int64)
     n = len(nl)
     nl_c = np.ascontiguousarray(nl, dtype=np.int64)
@@ -801,14 +772,11 @@ def s_spans(
     want_ints: bool = False,
 ):
     """Per-S-line (name_end, seq_len) without the global tab index.
-    Returns (name_ends int64[], seq_lens int64[]) or None (no native
-    lib); raises ValueError on a malformed S line. With want_ints a third
-    element is returned: the decimal value of every name (parsed in the
-    same cache-hot pass), or None when any name is not a 1-18 digit
-    integer — same contract as gfa._parse_ints_from_spans."""
+    Returns (name_ends int64[], seq_lens int64[]); raises ValueError on a
+    malformed S line. With want_ints a third element is returned: the
+    decimal value of every name (parsed in the same cache-hot pass), or
+    None when any name is not a 1-18 digit integer (string names)."""
     lib = get_lib()
-    if lib is None:
-        return None
     n = len(starts)
     i64p = ctypes.POINTER(ctypes.c_int64)
     s = np.ascontiguousarray(starts, dtype=np.int64)
@@ -855,32 +823,6 @@ def s_spans(
     return name_ends, seq_lens
 
 
-def build_edge_hash(keys: np.ndarray, eids: np.ndarray):
-    """Open-addressing hash table over canonical edge keys (load <= 0.5),
-    interleaved (key, eid) uint64 pairs so a probe hit costs one cache
-    line. Returns (slots uint64[2*S], log2_slots) or None (native
-    unavailable). Valid keys are >= 4, so slot key 0 == empty."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    i64p = ctypes.POINTER(ctypes.c_int64)
-    u64p = ctypes.POINTER(ctypes.c_uint64)
-    n = len(keys)
-    log2_slots = max(int(2 * n - 1).bit_length(), 4)
-    n_slots = 1 << log2_slots
-    slots = np.zeros(2 * n_slots, dtype=np.uint64)
-    ks_c = np.ascontiguousarray(keys, dtype=np.uint64)
-    es_c = np.ascontiguousarray(eids, dtype=np.int64)
-    lib.pt_build_edge_hash(
-        ks_c.ctypes.data_as(u64p),
-        es_c.ctypes.data_as(i64p),
-        ctypes.c_int64(n),
-        slots.ctypes.data_as(u64p),
-        ctypes.c_int32(log2_slots),
-    )
-    return slots, log2_slots
-
-
 def index_edges(
     buf: np.ndarray,
     starts: np.ndarray,
@@ -894,11 +836,10 @@ def index_edges(
     """One-pass L-line edge indexer: parse + canonicalize + hash-dedupe with
     first-occurrence edge ids. mode 3 resolves string names through
     `name_hash` (build_name_hash). Returns (edge_hash, edges_u, edges_o1,
-    edges_v, edges_o2, degree, n_dup) or None (native unavailable); raises
-    ValueError on a malformed line / unknown node."""
+    edges_v, edges_o2, degree, n_dup); raises ValueError on a malformed
+    line / unknown node. The hash is the (slots, log2_slots) pair that
+    lookup_pairs and lookup_edges probe."""
     lib = get_lib()
-    if lib is None:
-        return None
     i64p = ctypes.POINTER(ctypes.c_int64)
     u64p = ctypes.POINTER(ctypes.c_uint64)
     u32p = ctypes.POINTER(ctypes.c_uint32)
@@ -973,13 +914,10 @@ def build_membership(
     group_idx: np.ndarray,
     M: np.ndarray,
     n_threads: int = 0,
-) -> bool:
+) -> None:
     """Threaded scatter-OR of (path, group) blocks into the zeroed packed
-    membership matrix M[n_words, n_items_pad]. Returns False if the native
-    path is unavailable (caller falls back to numpy)."""
+    membership matrix M[n_words, n_items_pad]."""
     lib = get_lib()
-    if lib is None:
-        return False
     i64p = ctypes.POINTER(ctypes.c_int64)
     u32p = ctypes.POINTER(ctypes.c_uint32)
     if n_threads <= 0:
@@ -988,7 +926,7 @@ def build_membership(
     pf_c = np.ascontiguousarray(prefsum, dtype=np.int64)
     pi_c = np.ascontiguousarray(path_ids, dtype=np.int64)
     gi_c = np.ascontiguousarray(group_idx, dtype=np.int64)
-    rc = lib.pt_build_membership(
+    lib.pt_build_membership(
         it_c.ctypes.data_as(i64p),
         pf_c.ctypes.data_as(i64p),
         pi_c.ctypes.data_as(i64p),
@@ -999,7 +937,6 @@ def build_membership(
         ctypes.c_int64(M.shape[1]),
         ctypes.c_int32(n_threads),
     )
-    return rc == 0
 
 
 def lookup_pairs(
@@ -1009,12 +946,10 @@ def lookup_pairs(
     o2: np.ndarray,
     edge_hash,
 ):
-    """Bulk canonical edge-id lookup for flat oriented pair arrays. Returns
-    eids int64[n] or None (native unavailable); raises ValueError on an
+    """Bulk canonical edge-id lookup for flat oriented pair arrays in the
+    index_edges hash. Returns eids int64[n]; raises ValueError on an
     unknown pair."""
     lib = get_lib()
-    if lib is None or edge_hash is None:
-        return None
     slots, log2_slots = edge_hash
     i64p = ctypes.POINTER(ctypes.c_int64)
     u64p = ctypes.POINTER(ctypes.c_uint64)
@@ -1036,8 +971,7 @@ def lookup_pairs(
     )
     if rc < 0:
         i = -rc - 1
-        # report the canonical orientation, same as the numpy fallback
-        # (gfa.edge_ids_for_pairs)
+        # report the canonical orientation, as panacus_tpu does
         cu, cv = int(u_c[i]), int(v_c[i])
         co1, co2 = int(o1_c[i]), int(o2_c[i])
         if cu > cv or (cu == cv and co1):
@@ -1059,11 +993,9 @@ def lookup_edges(
 ):
     """Canonical edge-id lookup for every consecutive pair of every path,
     threaded, one hash probe per pair, no temporaries. edge_hash is the
-    build_edge_hash triple. Returns (eids int64[E], e_pref int64[n+1]) or
-    None (native unavailable); raises ValueError on an unknown edge."""
+    index_edges hash. Returns (eids int64[E], e_pref int64[n+1]); raises
+    ValueError on an unknown edge."""
     lib = get_lib()
-    if lib is None or edge_hash is None:
-        return None
     slots, log2_slots = edge_hash
     i64p = ctypes.POINTER(ctypes.c_int64)
     u64p = ctypes.POINTER(ctypes.c_uint64)
@@ -1096,6 +1028,12 @@ def lookup_edges(
     return out, e_pref
 
 
+# an adjacency entry packs ((v << 2 | o1 << 1 | o2) << 32 | eid) into 64
+# bits (pt_build_edge_adj): node ids below 2^29, edge ids below 2^31
+ADJ_MAX_ITEMS = 1 << 29
+ADJ_MAX_EDGES = 1 << 31
+
+
 def build_edge_adj(
     edges_u: np.ndarray,
     edges_o1: np.ndarray,
@@ -1108,14 +1046,12 @@ def build_edge_adj(
     packed dest key — one interleaved word per entry, so a row scan
     touches one cache line per 8 entries. The cache-friendly replacement
     for the open hash on large graphs (the probe stream of an ascending
-    path becomes near-sequential). Returns None when native is
-    unavailable or the packed layout doesn't fit (v >= 2^29 or
-    n_edges >= 2^31 — the open hash handles those)."""
+    path becomes near-sequential). Returns None where the packed layout
+    doesn't fit (n_items >= ADJ_MAX_ITEMS or n_edges >= ADJ_MAX_EDGES):
+    the index_edges hash serves those graphs."""
     lib = get_lib()
-    if lib is None:
-        return None
     n = len(edges_u)
-    if n >= (1 << 31) or n_items >= (1 << 29):
+    if n >= ADJ_MAX_EDGES or n_items >= ADJ_MAX_ITEMS:
         return None
     i64p = ctypes.POINTER(ctypes.c_int64)
     u64p = ctypes.POINTER(ctypes.c_uint64)
@@ -1146,10 +1082,8 @@ def lookup_edges_adj(
     n_threads: int = 0,
 ):
     """Canonical edge-id lookup via the CSR adjacency (build_edge_adj
-    triple); same contract as lookup_edges."""
+    pair); same contract as lookup_edges."""
     lib = get_lib()
-    if lib is None or edge_adj is None:
-        return None
     row_off, adj_ent = edge_adj
     i64p = ctypes.POINTER(ctypes.c_int64)
     u64p = ctypes.POINTER(ctypes.c_uint64)
@@ -1190,14 +1124,11 @@ def pack_edges_adj(
     edge_adj,
     edge_row: np.ndarray,
     n_threads: int = 0,
-) -> bool:
+) -> None:
     """Fused edge lookup + group-bit OR into edge_row (uint32
-    [n_items_pad]): the -c all hot path never materializes the edge-id
-    CSR. Returns False when native is unavailable; raises on unknown
-    edges."""
+    [n_items_pad]) through the CSR adjacency: the -c all hot path never
+    materializes the edge-id CSR. Raises on unknown edges."""
     lib = get_lib()
-    if lib is None or edge_adj is None:
-        return False
     row_off, adj_ent = edge_adj
     i64p = ctypes.POINTER(ctypes.c_int64)
     u64p = ctypes.POINTER(ctypes.c_uint64)
@@ -1223,18 +1154,16 @@ def pack_edges_adj(
         raise ValueError(
             f"unknown edge between segments {ids_c[k]} and {ids_c[k + 1]}"
         )
-    return True
 
 
 def parse_path_tokens(
     buf: np.ndarray, start: int, end: int, walk: bool
 ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     """Tokenize buf[start:end] as P-line ids ('12+,34-') or W-line walk
-    ('>12<34'). Returns (ids int64, orient uint8) or None if the native lib
-    is unavailable or the span isn't pure integers (caller falls back)."""
+    ('>12<34'). Returns (ids int64, orient uint8), or None where the span
+    is not a list of integer steps (GraphStorage.path_item_run then parses
+    it with numpy, which raises the user-facing error or takes it)."""
     lib = get_lib()
-    if lib is None:
-        return None
     n = end - start
     if n <= 0:
         return np.zeros(0, np.int64), np.zeros(0, np.uint8)
@@ -1258,16 +1187,13 @@ def parse_path_tokens(
 
 def format_table(
     vals: np.ndarray, names: np.ndarray, n_threads: int = 0
-) -> Optional[bytes]:
+) -> bytes:
     """Format int64 matrix vals[n, g] as TSV rows "name\\tv0\\t...\\n".
 
     names: fixed-width bytes array ([n] of dtype S<w> or [n, w] uint8);
     NUL bytes anywhere in a name cell are padding and are skipped (composed
-    names interleave NUL-padded blocks). Returns the formatted bytes, or
-    None when the native lib is unavailable (caller falls back)."""
+    names interleave NUL-padded blocks). Returns the formatted bytes."""
     lib = get_lib()
-    if lib is None:
-        return None
     vals = np.ascontiguousarray(vals, dtype=np.int64)
     n, g = vals.shape
     if n == 0:
@@ -1296,6 +1222,4 @@ def format_table(
         row_lens.ctypes.data_as(i64p),
         ctypes.c_int32(n_threads),
     )
-    if total < 0:
-        return None
     return out[:total].tobytes()

@@ -1145,23 +1145,6 @@ static inline uint64_t edge_hash_get(
     return slots[2 * s + 1];
 }
 
-/* Populate a zeroed slot table (n_slots = 1 << log2_slots, must exceed n).
- * Slots are interleaved (key, eid) uint64 pairs so a probe that hits costs
- * one cache line, not two. */
-EXPORT void pt_build_edge_hash(
-    const uint64_t* keys, const int64_t* eids, int64_t n,
-    uint64_t* slots, int32_t log2_slots)
-{
-    uint64_t mask = ((uint64_t)1 << log2_slots) - 1;
-    int shift = 64 - log2_slots;
-    for (int64_t i = 0; i < n; i++) {
-        uint64_t s = (keys[i] * EDGE_HASH_MUL) >> shift;
-        while (slots[2 * s]) s = (s + 1) & mask;
-        slots[2 * s] = keys[i];
-        slots[2 * s + 1] = (uint64_t)eids[i];
-    }
-}
-
 typedef struct {
     const int64_t* ids;
     const uint8_t* orient;

@@ -49,7 +49,7 @@ from ..itemize import ItemizeResult, itemize_paths
 from ..mask import GraphMask
 from ..ops.engine import CountingEngine, Devices
 from ..runtime import comm_device, host_all_gather, world
-from ..stream import _pack_row, _plan_slabs, _slab_edges
+from ..stream import _pack_row, _plan_slabs
 from ..utils import CountType
 
 log = logging.getLogger("panacus")
@@ -518,8 +518,8 @@ def multihost_total_abaci(
     Subset masks, coordinate excludes and coverage-table exports
     (need_itemized) take multihost_masked_abaci. Returns None (the caller
     runs the classic build: every process itemizes the whole graph and
-    keeps its own columns of M) when the native tokenizer is unavailable
-    on the graph or on any rank's paths, or there are no paths."""
+    keeps its own columns of M) when the C tokenizer refuses a step list
+    of any rank's paths, or there are no paths."""
     if need_itemized or mask.include_coords is not None:
         return multihost_masked_abaci(graph, mask, count_types, devices, need_itemized)
     exc_pids = None
@@ -532,8 +532,6 @@ def multihost_total_abaci(
         exc_pids = frozenset(
             i for i, seg in enumerate(graph.path_segments) if seg.id() in exc_map
         )
-    if not graph.batch_tokenizable():
-        return None
     n_paths = len(graph.path_segments)
     if n_paths == 0:
         return None
@@ -622,7 +620,7 @@ def multihost_total_abaci(
             for k in exc_local:
                 node_excl[ids[prefsum[k] : prefsum[k + 1]]] = True
         if need_edge and (slab.word >= 0 or exc_local):
-            eids, e_pref = _slab_edges(graph, ids, orient, prefsum)
+            eids, e_pref = graph.edge_runs(ids, orient, prefsum)
             if slab.word >= 0:
                 _pack_row(eids, e_pref, slab.gidx_rel[sel], R_edge[slab.word - my_words.start])
             for k in exc_local:

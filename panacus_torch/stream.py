@@ -51,8 +51,8 @@ return None too. The build adds `node_slabs` and `node_slabs_on_device` to
 else 0) and `uploads_early` (1 where it took the upload started while
 indexing).
 
-Applicability: unmasked runs (no subset/exclude coordinates) on graphs the
-native batch tokenizer handles. Masked runs take the classic itemizer.
+Applicability: unmasked runs (no subset/exclude coordinates) whose step
+lists the C tokenizer takes. Masked runs take the classic itemizer.
 """
 
 from __future__ import annotations
@@ -69,13 +69,7 @@ from .abacus import AbacusByTotal, path_order_groups
 from .gfa import GraphStorage, PathSegment, SlabbedItemTable
 from .itemize import ItemizeResult
 from .mask import GraphMask
-from .native import (
-    build_membership,
-    get_lib,
-    lookup_edges,
-    lookup_edges_adj,
-    pack_edges_adj,
-)
+from .native import build_membership, pack_edges_adj
 from .ops import parse_kernels
 from .ops.engine import Devices, MembershipStream
 from .runtime import add_counts, effective_threads, span, world
@@ -137,54 +131,16 @@ def _pack_row(
     ids: np.ndarray, prefsum: np.ndarray, gidx_rel: np.ndarray, out: np.ndarray
 ) -> np.ndarray:
     """OR this slab's per-path item runs into the zeroed uint32 row `out`."""
-    M = out.reshape(1, -1)
-    k = len(gidx_rel)
-    done = build_membership(
+    build_membership(
         ids,
         prefsum,
-        np.arange(k, dtype=np.int64),
+        np.arange(len(gidx_rel), dtype=np.int64),
         np.ascontiguousarray(gidx_rel, dtype=np.int64),
-        M,
+        out.reshape(1, -1),
         effective_threads(),
     )
-    if not done:
-        for j in range(k):
-            run = ids[prefsum[j] : prefsum[j + 1]]
-            out[run] |= np.uint32(1 << int(gidx_rel[j]))
     out[0] = 0  # sentinel slot (reference: abacus.rs:549-552)
     return out
-
-
-def _slab_edges(
-    graph: GraphStorage,
-    ids: np.ndarray,
-    orient: np.ndarray,
-    prefsum: np.ndarray,
-) -> Tuple[np.ndarray, np.ndarray]:
-    """Per-slab edge CSR from the node CSR (canonical edge ids of every
-    consecutive pair)."""
-    if len(ids) == 0:
-        return np.zeros(0, np.int64), prefsum.copy()
-    res = lookup_edges_adj(
-        ids, orient, prefsum, graph.edge_adj(), effective_threads()
-    )
-    if res is None:
-        res = lookup_edges(
-            ids, orient, prefsum, graph.edge_hash(), effective_threads()
-        )
-    if res is not None:
-        return res
-    counts = np.diff(prefsum)
-    nz = counts > 0
-    keep = np.ones(len(ids), dtype=bool)
-    keep[prefsum[1:][nz] - 1] = False
-    idx = np.flatnonzero(keep)
-    eids = graph.edge_ids_for_pairs(
-        ids[idx], orient[idx], ids[idx + 1], orient[idx + 1]
-    )
-    e_pref = np.zeros(len(prefsum), dtype=np.int64)
-    np.cumsum(np.maximum(counts, 1) - 1, out=e_pref[1:])
-    return eids, e_pref
 
 
 class LazyEdgeTable:
@@ -356,15 +312,13 @@ def streamed_total_abaci(
     devices: Devices,
 ):
     """Unmasked abacus build. Returns (abaci, itemized, path_order, groups),
-    or None when the classic path must run (masks present / native
-    tokenizer unavailable / no paths) or in a multi-process run, which
+    or None when the classic path must run (masks present / a step list
+    the C tokenizer refuses / no paths) or in a multi-process run, which
     builds through parallel.ingest.multihost_total_abaci."""
     if world()[1] > 1:
         return None
     masked = mask.include_coords is not None or mask.exclude_coords is not None
     if masked:
-        return None
-    if not graph.batch_tokenizable():
         return None
     n_paths = len(graph.path_segments)
     if n_paths == 0:
@@ -407,7 +361,7 @@ def streamed_total_abaci(
         edge_stream = MembershipStream(
             graph.number_of_items(CountType.EDGE), n_groups, devices
         )
-        edge_fused = get_lib() is not None and graph.edge_adj() is not None
+        edge_fused = graph.edge_adj() is not None
         edge_table = (
             LazyEdgeTable(graph, n_paths) if edge_fused else SlabbedItemTable(n_paths)
         )
@@ -420,7 +374,7 @@ def streamed_total_abaci(
         if edge_fused:
             edge_table.add_slab(slab.path_ids, ids, orient, prefsum)
         else:
-            eids, e_pref = _slab_edges(graph, ids, orient, prefsum)
+            eids, e_pref = graph.edge_runs(ids, orient, prefsum)
             edge_table.add_slab(slab.path_ids, eids, e_pref)
         if slab.word < 0:
             return

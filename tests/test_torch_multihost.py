@@ -204,6 +204,18 @@ def _oracle_excluded(visits_all, lens, edges, excluded):
     return node.tolist(), bp.astype(np.int64).tolist(), np.bincount(ecov, minlength=n + 1).tolist()
 
 
+def _trailing_comma(gfa, path):
+    """The graph with a ',' after the last step of its last P line: the C
+    tokenizer refuses the list, the per-path parse takes it."""
+    lines = open(gfa).read().splitlines()
+    i = max(k for k, l in enumerate(lines) if l.startswith("P\t"))
+    f = lines[i].split("\t")
+    f[2] += ","
+    lines[i] = "\t".join(f)
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
 @pytest.fixture(scope="module")
 def two(tmp_path_factory):
     """Every 2-process scenario in one launch, with the one-process
@@ -238,6 +250,7 @@ def two(tmp_path_factory):
             a = int(rng.integers(0, 150))
             cexc.append(f"s{p}#0#chr1\t{a}\t{a + int(rng.integers(2, 120))}\n")
     combo_sub, combo_exc = _bed(tmp / "csub.bed", csub), _bed(tmp / "cexc.bed", cexc)
+    gfa_bad = _trailing_comma(gfa, tmp / "mh_bad.gfa")
     scenarios = {
         "hist": {"gfa": gfa, "mode": "hist", "shards": 2},
         "group": {"gfa": gfa, "mode": "group", "shards": 2},
@@ -247,6 +260,7 @@ def two(tmp_path_factory):
         "coordexclude": {"gfa": gfa, "mode": "hist", "exclude": cex},
         "table": {"gfa": gfa, "mode": "table"},
         "combo": {"gfa": gfa, "mode": "hist", "subset": combo_sub, "exclude": combo_exc},
+        "refused": {"gfa": gfa_bad, "mode": "hist", "edge": True},
     }
     ranks = _run(tmp, 2, scenarios)
     refs = {
@@ -258,6 +272,7 @@ def two(tmp_path_factory):
         "coordexclude": _tpu_result(gfa, exclude=cex),
         "table": _tpu_result(gfa, table=True),
         "combo": _tpu_result(gfa, subset=combo_sub, exclude=combo_exc),
+        "refused": _tpu_result(gfa_bad, edge=True),
     }
     return ranks, refs, (visits, lens, edges)
 
@@ -345,6 +360,18 @@ def test_two_process_string_names_path_sliced(two):
     node, bp = _oracle_hists(visits, lens)
     assert res["hists"]["node"] == node.tolist() == refs["strings"]["hists"]["node"]
     assert res["hists"]["bp"] == bp.tolist() == refs["strings"]["hists"]["bp"]
+
+
+def test_two_process_refused_step_list_takes_the_classic_build(two):
+    """The rank that owns the refused step list bails, every rank takes
+    the classic build (no path-sliced stats), and the per-path parse takes
+    the list as panacus_tpu does."""
+    ranks, refs, _ = two
+    res = _same_on_every_rank(ranks, "refused")
+    assert all(r["refused"]["mh_stats"] is None for r in ranks)
+    assert res["hists"] == refs["refused"]["hists"]
+    assert res["paths_len"] == refs["refused"]["paths_len"]
+    assert len(res["paths_len"]) == N_SAMPLES
 
 
 @pytest.mark.parametrize("name", ["subset", "coordexclude", "combo"])

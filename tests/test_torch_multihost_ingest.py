@@ -171,7 +171,9 @@ def test_group_cuts_balanced_hprc_shape():
 
 
 def _graphs(tmp_path):
-    """The in-repo dryrun graph and tests/test_multihost.py's fixture."""
+    """The in-repo dryrun graph, tests/test_multihost.py's fixture, and the
+    dryrun graph with a ',' after the last step of its first P line (the C
+    tokenizer refuses it, the per-path parse takes it)."""
     from test_multihost import _write_fixture
 
     from panacus_torch import testgraphs
@@ -180,7 +182,14 @@ def _graphs(tmp_path):
     testgraphs._write_dryrun_gfa(dry)
     mh = str(tmp_path / "mh.gfa")
     _write_fixture(mh)
-    return [dry, mh]
+    lines = open(dry).read().splitlines()
+    i = next(k for k, l in enumerate(lines) if l.startswith("P\t"))
+    f = lines[i].split("\t")
+    f[2] += ","
+    lines[i] = "\t".join(f)
+    bad = tmp_path / "dryrun_bad.gfa"
+    bad.write_text("\n".join(lines) + "\n")
+    return [dry, mh, str(bad)]
 
 
 def test_partition_groups_equals_panacus_tpu(tmp_path):
