@@ -14,8 +14,8 @@ import numpy as np
 
 from ..io_utils import write_metadata_comments
 from ..report.sections import AnalysisSection, heatmap
-from ..runtime import phase_timer
-from ..utils import fmt_f32
+from ..native import format_f32_table
+from ..runtime import phase_timer, span
 from . import Analysis
 
 
@@ -62,17 +62,10 @@ class Similarity(Analysis):
 
     def generate_table(self, gb) -> str:
         self._set_table(gb)
-        text = write_metadata_comments()
-        out = ["group"]
-        for g in self._labels:
-            out.append(f"\t{g}")
-        out.append("\n")
-        for i, row in enumerate(self._table):
-            out.append(self._labels[i])
-            for cell in row:
-                out.append(f"\t{fmt_f32(cell)}")
-            out.append("\n")
-        return text + "".join(out)
+        header = "".join(["group"] + [f"\t{g}" for g in self._labels] + ["\n"])
+        with span("write.format", cells=self._table.size):
+            body = format_f32_table(self._table, self._labels)
+        return write_metadata_comments() + header + body
 
     def generate_report_section(self, gb) -> List[AnalysisSection]:
         self._set_table(gb)

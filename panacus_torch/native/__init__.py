@@ -15,7 +15,7 @@ import os
 import platform
 import subprocess
 import threading
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -227,6 +227,10 @@ def _build_lib() -> ctypes.CDLL:
             ctypes.c_int32,  # n_threads
         ]
     )
+    lib.pt_format_f32.restype = ctypes.c_int32
+    lib.pt_format_f32.argtypes = [ctypes.c_uint32, u8p]
+    lib.pt_format_f32_table.restype = i64
+    lib.pt_format_f32_table.argtypes = [u32p, i64, i64, u8p, i64p, u8p, i64]
     return lib
 
 
@@ -1223,3 +1227,46 @@ def format_table(
         ctypes.c_int32(n_threads),
     )
     return out[:total].tobytes()
+
+
+# the longest text of one float32 (gfa_scan.c: F32_MAX_CHARS)
+F32_MAX_CHARS = 48
+
+
+def format_f32(x) -> str:
+    """x, rounded to float32, as the shortest decimal that reads back as
+    that float32, the nearest such (numpy's Dragon4 with unique=True,
+    positional, no trailing "."; NaN, inf, -inf, -0)."""
+    out = np.empty(F32_MAX_CHARS, dtype=np.uint8)
+    bits = int(np.float32(x).view(np.uint32))
+    n = get_lib().pt_format_f32(bits, _as_u8p(out))
+    return out[:n].tobytes().decode("ascii")
+
+
+def format_f32_table(vals: np.ndarray, labels: Sequence[str]) -> str:
+    """Format the float32 matrix vals[n, g] as TSV rows
+    "label\\tc0\\t...\\n", each cell as format_f32 writes it, in one call."""
+    vals = np.ascontiguousarray(vals, dtype=np.float32)
+    n, g = vals.shape
+    if len(labels) != n:
+        raise ValueError(f"{len(labels)} labels for {n} rows")
+    encoded = [label.encode() for label in labels]
+    # one NUL past the labels, so that the buffer is never empty
+    text = np.frombuffer(b"".join(encoded) + b"\0", dtype=np.uint8)
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    offsets[1:] = np.cumsum([len(b) for b in encoded], dtype=np.int64)
+    cap = int(offsets[-1]) + n * (g * (F32_MAX_CHARS + 1) + 1)
+    out = np.empty(cap + 1, dtype=np.uint8)
+    bits = vals.view(np.uint32)
+    total = get_lib().pt_format_f32_table(
+        bits.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        n,
+        g,
+        _as_u8p(text),
+        offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        _as_u8p(out),
+        cap,
+    )
+    if total < 0:
+        raise ValueError("pt_format_f32_table refused its arguments")
+    return out[:total].tobytes().decode()

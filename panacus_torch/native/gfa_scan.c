@@ -1908,3 +1908,182 @@ EXPORT int64_t pt_format_table(
     }
     return w;
 }
+
+
+/* ---- float32 shortest decimal ------------------------------------------ *
+ *
+ * The text of an IEEE binary32 value x = m2 * 2^e2 that numpy's Dragon4
+ * prints with unique=True (and Rust's f32 Display at every value the
+ * similarity and info tables hold): the fewest significant digits that
+ * read back as x under round-half-to-even, and of those the one nearest x,
+ * a tie going to the even last digit. x's rounding interval runs half an
+ * ulp either side, a quarter ulp below at a power of two (the ulp below is
+ * half as wide there), and takes its end points where m2 is even.
+ *
+ * The interval's ends and x are scaled by 10^-e10 exactly (the floor and
+ * whether it was exact), with e10 one digit below the one Ryu's f2s takes:
+ * the scaled interval is then 30 to 400 units wide, so at least one digit
+ * always comes off, and the removed digits of x say which way to round
+ * (where e10 is 0, x is an integer below 2^32 and scales exactly, and
+ * none need come off). Digits come off the candidate range [a+1, b] while
+ * it holds a multiple of ten.
+ * Magnitudes: the scaled numbers are below 2^33, the products below
+ * 2^136, kept as 192 bits. */
+
+typedef unsigned __int128 pt_u128;
+
+#define F32_MAX_CHARS 48  /* "-0." 44 zeros and one digit: 2^-149 */
+
+static pt_u128 pow5_u128(int n)
+{
+    pt_u128 r = 1, b = 5;
+    while (n) {
+        if (n & 1) r *= b;
+        n >>= 1;
+        if (n) b *= b;
+    }
+    return r;
+}
+
+/* floor(M * 2^e / 10^e10) (M < 2^26, 0 <= e10 < e for e >= 0; e10 < 0
+ * for e < 0, with e10 - e <= 104) and whether it is exact; p5 = 5^|e10| */
+static uint64_t f32_scaled(uint32_t M, int e, int e10, pt_u128 p5, int* exact)
+{
+    if (e >= 0) {
+        pt_u128 num = (pt_u128)M << (e - e10);
+        pt_u128 q = num / p5;
+        *exact = q * p5 == num;
+        return (uint64_t)q;
+    }
+    /* M * 5^-e10 / 2^s, s = e10 - e: the product as hi * 2^64 + lo */
+    pt_u128 p_lo = (pt_u128)M * (uint64_t)p5;
+    pt_u128 hi = (pt_u128)M * (uint64_t)(p5 >> 64) + (p_lo >> 64);
+    uint64_t lo = (uint64_t)p_lo;
+    int s = e10 - e;
+    if (s <= 0) {                  /* e is -1 or -2: the product is below 2^31 */
+        *exact = 1;
+        return lo << -s;
+    }
+    if (s >= 64) {
+        int r = s - 64;
+        *exact = lo == 0 && (r == 0 || (hi & (((pt_u128)1 << r) - 1)) == 0);
+        return (uint64_t)(hi >> r);
+    }
+    *exact = (lo & ((1ULL << s) - 1)) == 0;
+    /* the quotient is below 2^33, so hi << (64 - s) cannot overflow */
+    return (uint64_t)((hi << (64 - s)) | (lo >> s));
+}
+
+/* Write the text of the binary32 value with these bits; returns its length
+ * (at most F32_MAX_CHARS). NaN prints "NaN", infinities "inf" / "-inf",
+ * zeros "0" / "-0"; positional notation, no exponent, no trailing ".". */
+static int fmt_f32_bits(uint8_t* out, uint32_t bits)
+{
+    uint8_t* p = out;
+    uint32_t ex = (bits >> 23) & 0xff, mant = bits & 0x7fffff;
+    if (ex == 0xff && mant) {
+        memcpy(p, "NaN", 3);
+        return 3;
+    }
+    if (bits >> 31) *p++ = '-';
+    if (ex == 0xff) {
+        memcpy(p, "inf", 3);
+        return (int)(p - out) + 3;
+    }
+    if (ex == 0 && mant == 0) {
+        *p++ = '0';
+        return (int)(p - out);
+    }
+    uint32_t m2 = ex ? mant | (1u << 23) : mant;
+    int e = (ex ? (int)ex - 150 : -149) - 2;
+    uint32_t mv = 4 * m2, mp = mv + 2;
+    uint32_t mm = mv - 1 - (mant != 0 || ex <= 1);
+    int e10;
+    if (e >= 0) {
+        int q = (int)(((uint32_t)e * 78913u) >> 18);       /* floor(e log10 2) */
+        e10 = q > 0 ? q - 1 : 0;
+    } else {
+        int q = (int)(((uint32_t)-e * 732923u) >> 20);     /* floor(-e log10 5) */
+        e10 = e + q - 1;
+    }
+    pt_u128 p5 = pow5_u128(e10 < 0 ? -e10 : e10);
+    int vm_x, vp_x, vr_x;
+    uint64_t vm = f32_scaled(mm, e, e10, p5, &vm_x);
+    uint64_t vp = f32_scaled(mp, e, e10, p5, &vp_x);
+    uint64_t vr = f32_scaled(mv, e, e10, p5, &vr_x);
+    /* candidates c with a < c <= b: the scaled integers inside the interval */
+    uint64_t a, b;
+    if ((m2 & 1) == 0) {
+        a = vm - (uint64_t)vm_x;
+        b = vp;
+    } else {
+        a = vm;
+        b = vp - (uint64_t)vp_x;
+    }
+    int t = 0;
+    uint64_t p10 = 1;
+    while (b / 10 > a / 10) {
+        a /= 10;
+        b /= 10;
+        p10 *= 10;
+        t++;
+    }
+    uint64_t d = vr / p10, rem = vr - d * p10;
+    /* round x / 10^t to the nearest integer; t == 0 only where x is exact */
+    if (2 * rem > p10 || (2 * rem == p10 && (!vr_x || (d & 1))))
+        d++;
+    if (d <= a) d = a + 1;
+    if (d > b) d = b;
+    uint8_t dig[20];
+    int nd = 0;
+    do { dig[nd++] = (uint8_t)('0' + d % 10); d /= 10; } while (d);
+    int E = e10 + t, point = nd + E;  /* digits before the decimal point */
+    if (E >= 0) {
+        while (nd) *p++ = dig[--nd];
+        while (E--) *p++ = '0';
+    } else if (point > 0) {
+        for (int k = 0; k < point; k++) *p++ = dig[--nd];
+        *p++ = '.';
+        while (nd) *p++ = dig[--nd];
+    } else {
+        *p++ = '0';
+        *p++ = '.';
+        for (int k = 0; k < -point; k++) *p++ = '0';
+        while (nd) *p++ = dig[--nd];
+    }
+    return (int)(p - out);
+}
+
+/* The text of one binary32 value (bits) into out[F32_MAX_CHARS]; returns
+ * its length. */
+EXPORT int32_t pt_format_f32(uint32_t bits, uint8_t* out)
+{
+    return fmt_f32_bits(out, bits);
+}
+
+/* Format n rows "label\tc0\t...\tc{g-1}\n" of the binary32 matrix vals[n, g]
+ * (bits, row-major) into out, one thread. Row i's label is
+ * labels[label_off[i]:label_off[i+1]]. Returns the bytes written, or -1
+ * where cap < the labels' bytes + n * (g * (F32_MAX_CHARS + 1) + 1). */
+EXPORT int64_t pt_format_f32_table(
+    const uint32_t* vals, int64_t n, int64_t g,
+    const uint8_t* labels, const int64_t* label_off,
+    uint8_t* out, int64_t cap)
+{
+    if (n < 0 || g < 0) return -1;
+    if (cap < label_off[n] - label_off[0] + n * (g * (F32_MAX_CHARS + 1) + 1))
+        return -1;
+    uint8_t* p = out;
+    for (int64_t i = 0; i < n; i++) {
+        int64_t len = label_off[i + 1] - label_off[i];
+        memcpy(p, labels + label_off[i], (size_t)len);
+        p += len;
+        const uint32_t* row = vals + i * g;
+        for (int64_t j = 0; j < g; j++) {
+            *p++ = '\t';
+            p += fmt_f32_bits(p, row[j]);
+        }
+        *p++ = '\n';
+    }
+    return p - out;
+}

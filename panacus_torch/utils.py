@@ -16,6 +16,11 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+# the shortest-roundtrip decimal of an f32 value, like Rust Display of f32:
+# the C layer's formatter, which the similarity table's writer calls for a
+# whole table
+from .native import format_f32 as fmt_f32  # noqa: F401
+
 
 class CountType(enum.Enum):
     """What graph quantity is counted (reference: src/util.rs:44-70)."""
@@ -83,19 +88,6 @@ def fmt_float(x: float) -> str:
     s = repr(float(x))
     if s.endswith(".0"):
         s = s[:-2]
-    return s
-
-
-def fmt_f32(x) -> str:
-    """Shortest-roundtrip decimal of an f32 value, like Rust Display of f32."""
-    x32 = np.float32(x)
-    if np.isnan(x32):
-        return "NaN"
-    if np.isinf(x32):
-        return "inf" if x32 > 0 else "-inf"
-    s = np.format_float_positional(x32, unique=True, trim="-")
-    if s.endswith("."):
-        s = s[:-1]
     return s
 
 

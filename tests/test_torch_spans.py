@@ -8,7 +8,8 @@ wait and finalize, and the phases, each under its parent, all with one
 command id, their counts filled; then a `-c node` with the device route
 forced onto the CPU adds the step-list upload on its worker thread
 (`index.upload`), the build's stage, parse and wait, and the upload's
-counts. With no profiler a span records nothing and opens no
+counts; a `similarity` formats its table in `write.format` under
+`cli.write`. With no profiler a span records nothing and opens no
 record_function, while phase_timer still logs. Every span on the main
 thread lies where its record_function twin lies in the profiler's events
 (the same clock). A full record counts what it drops, also when more
@@ -193,6 +194,24 @@ def test_a_traced_command_records_every_span(gfa, monkeypatch):
         "uploads_early": 1,
     }
     assert one("cli.write") == {"bytes": len(text)}
+
+
+def test_a_similarity_formats_its_table_in_one_span(gfa):
+    """`similarity -c node -H` over the 300 haplotypes: the table's body is
+    formatted by one call inside `cli.write`, the span `write.format`, which
+    counts the g^2 cells."""
+    _, text = _profiled(gfa, ["similarity", "-c", "node", "-H"])
+    got = runtime.spans()
+    assert runtime.spans_dropped() == 0
+    by_id = {r.id: r for r in got}
+    (fmt,) = [r for r in got if r.name == "write.format"]
+    write = by_id[fmt.parent]
+    assert write.name == "cli.write" and fmt.command == write.command
+    assert write.start_ns <= fmt.start_ns <= fmt.end_ns <= write.end_ns
+    (header,) = [line for line in text.splitlines() if line.startswith("group\t")]
+    g = header.count("\t")
+    assert g == 300
+    assert fmt.counts == {"cells": g * g}
 
 
 def test_b_untraced_spans_record_nothing(gfa, monkeypatch, caplog):
