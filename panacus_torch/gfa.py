@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import gzip
 import logging
+import os
 import re
 import threading
 from dataclasses import dataclass
@@ -121,6 +122,11 @@ def _gz_capacity_hint(gfa_file: str) -> int:
     return max(min(isize, 64 * csize), 2 * csize, 1 << 20)
 
 
+# bytes a read of the zlib route asks for: gzip's readinto holds a
+# temporary as large as the request (1.2x a whole-buffer request)
+_GZ_READ = 1 << 20
+
+
 def _read_gz_streamed(gfa_file: str) -> bytearray:
     """Decompress a (possibly multi-member) gzip file into ONE buffer.
 
@@ -132,36 +138,48 @@ def _read_gz_streamed(gfa_file: str) -> bytearray:
     src/io.rs:23-33; our columnar indexer needs the whole buffer, so we
     decompress *into* it). The initial capacity comes from the gzip ISIZE
     footer via _gz_capacity_hint (exact for single-member files, a floor
-    otherwise)."""
-    cap = _gz_capacity_hint(gfa_file)
+    otherwise). The span `index.inflate` holds both routes and counts
+    `bytes_in` (the file's size), `bytes` (the inflated length) and
+    `libdeflate` (1 where libdeflate inflated the file, 0 where zlib did)."""
+    with span("index.inflate", bytes_in=os.path.getsize(gfa_file)) as sp:
+        cap = _gz_capacity_hint(gfa_file)
 
-    from .native import _get_libdeflate, gzip_decompress_buffer
+        from .native import _get_libdeflate, gzip_decompress_buffer
 
-    try:
-        raw_map = np.memmap(gfa_file, dtype=np.uint8, mode="r")
-        out = gzip_decompress_buffer(raw_map, cap)
-        if out is not None:
-            log.info("gz ingest: inflate by libdeflate")
-            return out
-    except (OSError, ValueError):
-        pass
-    log.info(
-        "gz ingest: inflate by zlib (%s)",
-        "no libdeflate" if _get_libdeflate() is None else "libdeflate refused the file",
-    )
+        try:
+            raw_map = np.memmap(gfa_file, dtype=np.uint8, mode="r")
+            out = gzip_decompress_buffer(raw_map, cap)
+            if out is not None:
+                log.info("gz ingest: inflate by libdeflate")
+                sp.add(bytes=len(out), libdeflate=1)
+                return out
+        except (OSError, ValueError):
+            pass
+        log.info(
+            "gz ingest: inflate by zlib (%s)",
+            "no libdeflate" if _get_libdeflate() is None else "libdeflate refused the file",
+        )
 
-    buf = bytearray(cap)
-    pos = 0
-    with gzip.open(gfa_file, "rb") as f:
-        while True:
-            if pos == len(buf):
-                buf.extend(bytes(len(buf) // 2))  # grow 1.5x
-            n = f.readinto(memoryview(buf)[pos:])
-            if not n:
-                break
-            pos += n
-    del buf[pos:]
-    return buf
+        buf = bytearray(cap)
+        pos = 0
+        with gzip.open(gfa_file, "rb") as f:
+            while True:
+                if pos == len(buf):
+                    # full: the hint is exact for one member, so grow only
+                    # where more is left (a larger earlier member)
+                    more = f.read(_GZ_READ)
+                    if not more:
+                        break
+                    buf[pos:] = more
+                    pos += len(more)
+                    buf.extend(bytes(len(buf) // 2))  # grow 1.5x
+                n = f.readinto(memoryview(buf)[pos : pos + _GZ_READ])
+                if not n:
+                    break
+                pos += n
+        del buf[pos:]
+        sp.add(bytes=pos, libdeflate=0)
+        return buf
 
 
 def _read_all(gfa_file: str):

@@ -9,12 +9,13 @@ command id, their counts filled; then a `-c node` with the device route
 forced onto the CPU adds the step-list upload on its worker thread
 (`index.upload`), the build's stage, parse and wait, and the upload's
 counts; a `similarity` formats its table in `write.format` under
-`cli.write`. With no profiler a span records nothing and opens no
-record_function, while phase_timer still logs. Every span on the main
-thread lies where its record_function twin lies in the profiler's events
-(the same clock). A full record counts what it drops, also when more
-threads than cores record at once. The two records that
-benchmark/harness.py parses keep their form.
+`cli.write`; a `.gfa.gz` inflates in `index.inflate` under `index`, on
+either route, and a plain file opens no such span. With no profiler a span
+records nothing and opens no record_function, while phase_timer still
+logs. Every span on the main thread lies where its record_function twin
+lies in the profiler's events (the same clock). A full record counts what
+it drops, also when more threads than cores record at once. The two
+records that benchmark/harness.py parses keep their form.
 
 Graph: testgraphs.make_graph at 3000 nodes with 300 paths (300 groups, 10
 slabs).
@@ -23,6 +24,7 @@ slabs).
 from __future__ import annotations
 
 import contextlib
+import gzip
 import io
 import logging
 import os
@@ -46,6 +48,7 @@ PARENTS = {
     "command": None,
     "cli.parse": "command",
     "index": "command",
+    "index.inflate": "index",
     "index.scan": "index",
     "index.nodes": "index",
     "index.paths": "index",
@@ -70,6 +73,8 @@ PARENTS = {
 }
 # the spans of the device route (a node build, one card), which -c all skips
 ROUTE = {"index.upload", "build.stage", "build.parse", "build.wait"}
+# the span of a .gfa.gz input alone
+GZ = {"index.inflate"}
 # spans on a worker thread
 WORKER = {"edge_index", "index.upload"}
 
@@ -154,7 +159,7 @@ def test_a_traced_command_records_every_span(gfa, monkeypatch):
     _late_indexer(monkeypatch)
     _, text = _profiled(gfa)
     got = runtime.spans()
-    one = _tree(got, set(PARENTS) - ROUTE)
+    one = _tree(got, set(PARENTS) - ROUTE - GZ)
 
     assert one("index.scan")["bytes"] == os.path.getsize(gfa)
     assert one("index.scan")["lines"] > 3000 + 300
@@ -180,7 +185,7 @@ def test_a_traced_command_records_every_span(gfa, monkeypatch):
     node = ["histgrowth", "-H", "-q", "0,0.5,1", "-l", "0,1,2", "-c", "node"]
     _, text = _profiled(gfa, node)
     got = runtime.spans()
-    one = _tree(got, set(PARENTS) - {
+    one = _tree(got, set(PARENTS) - GZ - {
         "index.edges", "edge_index", "build.tokenize", "build.pack",
         "edge_index.wait", "edge_index.adj", "build.edge_pack"})
     g = GraphStorage(gfa, index_edges=False)
@@ -194,6 +199,42 @@ def test_a_traced_command_records_every_span(gfa, monkeypatch):
         "uploads_early": 1,
     }
     assert one("cli.write") == {"bytes": len(text)}
+
+
+@pytest.mark.parametrize("route", ["libdeflate", "zlib"])
+def test_a_gz_command_records_its_inflate(gfa, route, tmp_path, monkeypatch, caplog):
+    """Two commands on the graph as one gzip member: each has one
+    `index.inflate` under its `index`, on the main thread, counting the
+    file's size, the inflated length and the route its log line names."""
+    from panacus_torch import native
+
+    if route == "zlib":
+        monkeypatch.setattr(native, "_DEFLATE", None)
+        monkeypatch.setattr(native, "_DEFLATE_TRIED", True)
+    elif native._get_libdeflate() is None:
+        pytest.skip("no system libdeflate: gz input takes the zlib stream (the zlib case)")
+    with open(gfa, "rb") as f:
+        data = f.read()
+    gz = tmp_path / "g300.gfa.gz"
+    gz.write_bytes(gzip.compress(data, compresslevel=1, mtime=0))
+    with caplog.at_level(logging.INFO, logger="panacus"), \
+            profile(activities=[ProfilerActivity.CPU]):
+        texts = [_cli(str(gz)) for _ in range(2)]
+    assert texts[0] == texts[1] == _cli(gfa)
+    logged = [r.getMessage() for r in caplog.records if r.getMessage().startswith("gz ingest")]
+    assert len(logged) == 2 and all(m.startswith(f"gz ingest: inflate by {route}") for m in logged)
+    got = runtime.spans()
+    assert runtime.spans_dropped() == 0
+    by_id = {r.id: r for r in got}
+    commands = {r.id for r in got if r.name == "command"}
+    inflates = [r for r in got if r.name == "index.inflate"]
+    assert len(commands) == 2 and sorted(r.command for r in inflates) == sorted(commands)
+    for r in inflates:
+        index = by_id[r.parent]
+        assert index.name == "index" and index.start_ns <= r.start_ns <= r.end_ns <= index.end_ns
+        assert r.thread == threading.get_ident()
+        assert r.counts == {"bytes_in": os.path.getsize(gz), "bytes": len(data),
+                            "libdeflate": int(route == "libdeflate")}
 
 
 def test_a_similarity_formats_its_table_in_one_span(gfa):
