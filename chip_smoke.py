@@ -27,7 +27,12 @@ Phases, one or more lines each on stdout:
    many-slab graph's path count), its M, every path's steps and bp and
    its error slot exact against its plain version (numpy on the host,
    parse_pack_ref), and with one byte of a list made bad: the error slot
-   names that list in both.
+   names that list in both. pt_parse_pack_edges runs on the same lists
+   with the CSR adjacency of every pair of steps they walk (edge ids in a
+   random order), its edge M and error slot exact against
+   parse_pack_edges_ref, and with one pair left out of the adjacency: the
+   error slot names the least list that walks it in both. Both parse
+   kernels are timed by events and by slope beside their bounds.
 3. main path: `histgrowth -c all -H -q 0,0.5,1.0 -l 0,1,2` through
    panacus_torch's CLI on cuda, on the panacus_torch.testgraphs.make_graph
    graph at its default size (900k nodes, 3.6M edges, 90 haplotype groups,
@@ -38,22 +43,33 @@ Phases, one or more lines each on stdout:
    are reset just before these two runs and read just after; both kernels
    must have run. The TSVs must equal the same commands run through the
    port on the CPU, and a small unmasked run must equal a numpy oracle.
+   The unmasked run parses its node and edge rows on the card, one
+   pt_parse_pack and one pt_parse_pack_edges; it runs once more with the
+   device route turned off (the host tokenizer and edge pack, M uploaded),
+   and its TSV must be the same.
 4. group path: on the same graph, `ordered-histgrowth -H -q 0,0.5,1
    -l 1,1,2` with -c bp and -c edge, and `similarity -H` with -c node and
    -c bp, on cuda. Launch counts are reset just before these four runs and
    read just after: pt_ordered_growth must run at least 3 times per ordered
    run and pt_similarity at least once per similarity run; the builds that
-   count no edges (every run but -c edge) parse their step lists on the
-   card, one pt_parse_pack a build, and the -c edge run launches none. Each TSV must
+   count nodes (every run but -c edge) parse their step lists on the
+   card, one pt_parse_pack a build, and the -c edge run one
+   pt_parse_pack_edges a build and no pt_parse_pack. Each TSV must
    equal the port's run on the CPU; a small ordered run and a small
    coverage table must equal numpy oracles.
 4b. path kernels: the arguments that phases 3 and 4 handed
    pt_fused_hist (the unmasked edge pass), pt_ordered_growth (the three
    thresholds of ordered-histgrowth -c edge), pt_similarity (similarity
-   -c node) and pt_parse_pack (the build of similarity -c node: every step
-   list of the graph, as phase 9's -c node builds hand it), captured
-   during those runs: each kernel against its plain version on them,
-   exact, timed by events and by slope, beside its bound.
+   -c node), pt_parse_pack (the build of similarity -c node: every step
+   list of the graph, as phase 9's -c node builds hand it) and
+   pt_parse_pack_edges (the build of the unmasked -c all: every step list
+   and the graph's CSR adjacency), captured during those runs: each kernel
+   against its plain version on them, exact, timed by events and by slope,
+   beside its bound. Then pt_fused_hist on the node and the edge M that
+   the unmasked -c all's device route leaves against those the host route
+   uploads: the same bytes, timed by events (L2 flushed) and by slope on
+   either, and timed right after each route's own last writes to M
+   replayed (both parses into zeroed M; M's copies from pinned memory).
 5. probe: the raw-read control and the hist-formulation probes
    (csrc/probe.cu: pt_xor_fold, pt_word_fold, pt_limb_hist), every route
    (panacus_torch.probe.ROUTES) against its plain version on the card on
@@ -130,12 +146,13 @@ Phases, one or more lines each on stdout:
    (1024 groups, 32 slabs; `-q 0,1.0 -l 0,2`, see FRONT_QL). Each TSV
    must equal the port's CPU run of the same command, and each run must
    launch pt_fused_hist (counted from 0 for each run) through the
-   streamed build, and pt_parse_pack once where it counts no edges (node,
-   gz_node) and never where it does. It prints the median walls, MB/s on the uncompressed
-   bytes, the phases index and abaci_by_total, the launches and the gz
-   inflate route (libdeflate or zlib); then one warm `-c all` under
+   streamed build, pt_parse_pack once where it counts nodes (all, node,
+   gz_node) and pt_parse_pack_edges once where it counts edges (all,
+   edge). It prints the median walls, MB/s on the uncompressed bytes,
+   the phases index and abaci_by_total, the launches and the gz inflate
+   route (libdeflate or zlib); then one warm `-c all` under
    torch.profiler: the phase scopes it finds, the device's busy time and
-   longest idle gap in each, and the slab scopes of the streamed build.
+   longest idle gap in each, and the build scopes of the streamed build.
 10. bench: `panacus_torch.bench.run` in process on the graph of phase 3,
    on the default devices (every visible GPU), with the launch counts
    reset just before it and read just after: the stages all / node / edge
@@ -188,6 +205,7 @@ SOURCE = {
     "pt_word_fold": "panacus_torch/csrc/probe.cu",
     "pt_limb_hist": "panacus_torch/csrc/probe.cu",
     "pt_parse_pack": "panacus_torch/csrc/parse.cu",
+    "pt_parse_pack_edges": "panacus_torch/csrc/parse.cu",
 }
 REPLACES = {
     "pt_fused_hist": "panacus_tpu/ops/pallas_kernels.py:199",
@@ -204,6 +222,7 @@ REPLACES = {
         "scripts/kernel_interleave.py:165 (_fh2)"
     ),
     "pt_parse_pack": "none (panacus_tpu parses the step lists on the host)",
+    "pt_parse_pack_edges": "none (panacus_tpu packs the edge rows on the host)",
 }
 # published peaks of one H100 SXM (dense): HBM bytes/s, int8 tensor-core
 # operations/s, and 32-bit operations/s outside the tensor cores (the table's
@@ -387,7 +406,14 @@ def phase_kernels(dev):
     span = int(descs[n_spans // 2, 2])
     bad[int(descs[n_spans // 2, 0]) + 1] = ord("x")
     check_parse("1024 random step lists, one byte bad", (bad,) + args[1:], flush, bad_span=span)
-    del text, descs, lens, bad
+    host = (text.cpu(), descs.cpu())
+    row_off, adj_ent, _ = parse_adjacency(*host, PARSE_ITEMS, np.random.default_rng(2))
+    args = (text, descs, row_off.to(dev), adj_ent.to(dev), PARSE_ITEMS, 3)
+    res["pt_parse_pack_edges"] = check_parse_edges("1024 random step lists", args, flush)
+    row_off, adj_ent, span = parse_adjacency(*host, PARSE_ITEMS, np.random.default_rng(2), drop=True)
+    args = (text, descs, row_off.to(dev), adj_ent.to(dev), PARSE_ITEMS, 3)
+    check_parse_edges("1024 random step lists, one pair with no L line", args, flush, bad_span=span)
+    del text, descs, lens, bad, row_off, adj_ent, args
     return res
 
 
@@ -474,6 +500,100 @@ def check_parse(label, args, flush, bad_span=None):
         f"{slope:.4f} ms by slope; plain {plain_ms:.1f} ms (numpy on the host); bound "
         f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, {bound_by}), {bound_ms / ms:.3f} of it "
         f"by events, {bound_ms / slope:.3f} by slope; library: none"
+    )
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, slope_ms=slope, at=f"{text.numel()} bytes, {descs.shape[0]} lists",
+                _bytes=nbytes)
+
+
+def parse_adjacency(text, descs, n_items, rng, drop=False):
+    """(row_off, adj_ent, span) on the host: the CSR adjacency of the L
+    lines that hold every pair of consecutive steps of the good lists of
+    (text, descs), laid out as native.build_edge_adj lays it (row u: (vkey
+    << 32) | edge id, by vkey; int64), with edge ids in a random order.
+    With `drop`, one pair is left out, and span is the least list that
+    walks it (else None)."""
+    import numpy as np
+    import torch
+
+    from panacus_torch.ops import parse_kernels as pk
+
+    s = text.numpy()
+    keys, spans = [], []
+    for begin, end, span, meta in descs.numpy().tolist():
+        ids, orient = pk.list_steps(s[begin:end], bool(meta >> 8 & 1), n_items)
+        u, v = ids[:-1], ids[1:]
+        o1, o2 = orient[:-1].astype(np.int64), orient[1:].astype(np.int64)
+        swap = (u > v) | ((u == v) & (o1 == 1))
+        vkey = np.where(swap, u, v) << 2 | np.where(swap, o2 ^ 1, o1) << 1 | np.where(swap, o1 ^ 1, o2)
+        keys.append(np.where(swap, v, u) << 32 | vkey)
+        spans.append(np.full(len(u), span))
+    keys, spans = np.concatenate(keys), np.concatenate(spans)
+    missing = None
+    if drop:
+        gone = keys[len(keys) // 2]
+        missing = int(spans[keys == gone].min())
+        keys = keys[keys != gone]
+    keys = np.unique(keys)
+    eids = rng.permutation(len(keys)) + 1
+    row_off = np.zeros(n_items + 2, dtype=np.int64)
+    row_off[1:] = np.cumsum(np.bincount(keys >> 32, minlength=n_items + 1))
+    adj_ent = (keys & 0xFFFFFFFF) << 32 | eids
+    return torch.from_numpy(row_off), torch.from_numpy(adj_ent), missing
+
+
+def check_parse_edges(label, args, flush, bad_span=None):
+    """pt_parse_pack_edges on args = (text, descs, row_off, adj_ent,
+    n_items, n_words) on the card against parse_pack_edges_ref on host
+    copies: the edge M and the error slot equal (the slot naming bad_span,
+    or no span); then, where every pair has its edge, timed by events and
+    by slope beside its bound. Returns its numbers for the kernels line."""
+    import torch
+
+    from panacus_torch.kernel_times import copies, event_ms, slope_ms
+    from panacus_torch.ops import parse_kernels as pk
+
+    text, descs, row_off, adj_ent, n_items, n_words = args
+
+    def outputs(device):
+        M = torch.zeros((n_words, adj_ent.numel() + 1), dtype=torch.int32, device=device)
+        err = torch.full((1,), int(pk.ERR_NONE), dtype=torch.int64, device=device)
+        return M, err
+
+    M, err = outputs(text.device)
+    pk.parse_pack_edges(text, descs, M, row_off, adj_ent, n_items, err)
+    hM, herr = outputs("cpu")
+    host = [t.cpu() for t in (text, descs, row_off, adj_ent)]
+    t0 = time.perf_counter()
+    pk.parse_pack_edges(host[0], host[1], hM, host[2], host[3], n_items, herr)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    want_err = int(pk.ERR_NONE) if bad_span is None else bad_span
+    if int(herr[0]) != want_err or int(err[0]) != want_err:
+        fail(f"pt_parse_pack_edges {label}: error slot {int(err[0])}, plain {int(herr[0])}, "
+             f"not {want_err}")
+    if bad_span is not None:
+        print(f"[kernels] pt_parse_pack_edges {label}: the kernel's and the plain error slot "
+              f"name span {bad_span}")
+        return None
+    if not torch.equal(M.cpu(), hM):
+        fail(f"pt_parse_pack_edges {label}: kernel != plain (edge M)")
+    ms = event_ms(lambda: pk.parse_pack_edges(text, descs, M, row_off, adj_ent, n_items, err),
+                  10, flush)
+    slope = slope_ms([lambda s=s: pk.parse_pack_edges(s[0], s[1], M, s[2], s[3], n_items, err)
+                      for s in copies((text, descs, row_off, adj_ent))])
+    # read the text, the descriptors and the adjacency once, write the edge
+    # M and the error slot once; a compare a byte
+    nbytes = (text.numel() + descs.numel() * 8 + row_off.numel() * 8 + adj_ent.numel() * 8
+              + M.numel() * 4 + 8)
+    bound_ms, bound_by = bound(nbytes, text.numel(), SCALAR_OPS)
+    print(
+        f"[kernels] pt_parse_pack_edges {label} ({text.numel() / 1e6:.2f} MB of text, "
+        f"{descs.shape[0]} lists, {adj_ent.numel()} edges, {int(hM.ne(0).sum())} of "
+        f"{n_words} x {adj_ent.numel() + 1} M words set): exact; kernel {ms:.4f} ms by events "
+        f"({text.numel() / ms / 1e6:.1f} GB/s of text), {slope:.4f} ms by slope; plain "
+        f"{plain_ms:.1f} ms (numpy on the host); bound {bound_ms:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB, {bound_by}), {bound_ms / ms:.3f} of it by events, "
+        f"{bound_ms / slope:.3f} by slope; library: none"
     )
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None, slope_ms=slope, at=f"{text.numel()} bytes, {descs.shape[0]} lists",
@@ -688,7 +808,8 @@ def phase_main_path(dev, single):
     masked = HISTGROWTH + ["-s", subset, gfa]
 
     kernels.reset_launches()
-    with capture() as calls:  # the arguments of each call, for phase 4b
+    # the arguments of each call, for phase 4b
+    with capture() as calls, capture_parse() as parse_calls:
         out_big, phases, wall = drive(unmasked, "cuda")
     counts_unmasked = dict(kernels.launches)
     single["histgrowth -c all"] = (unmasked, table(out_big)[0], counts_unmasked,
@@ -716,12 +837,19 @@ def phase_main_path(dev, single):
     )
     if counts_unmasked["pt_fused_hist"] < 2:
         fail("histgrowth -c all launched pt_fused_hist fewer than 2 times")
-    if launches["pt_parse_pack"]:
-        fail("histgrowth -c all counts edges and must not parse its step lists on the card")
-    launches = {name: launches[name] for name in ("pt_fused_hist", "pt_coverage")}
+    if (counts_unmasked["pt_parse_pack"], counts_unmasked["pt_parse_pack_edges"]) != (1, 1):
+        fail("unmasked histgrowth -c all did not parse its node and edge rows on the card once each")
+    if counts_masked["pt_parse_pack"] or counts_masked["pt_parse_pack_edges"]:
+        fail("subset-masked histgrowth -c all parsed its step lists on the card")
+    launches = {name: launches[name] for name in ("pt_fused_hist", "pt_coverage",
+                                                  "pt_parse_pack_edges")}
     for name, n in launches.items():
         if n < 1:
             fail(f"{name} was not launched on the main path")
+    with capture() as host_calls, device_route_off():  # the M that the host uploads
+        out_host = drive(unmasked, "cuda")[0]
+    if table(out_host)[0] != table(out_big)[0]:
+        fail("histgrowth -c all on the host route differs from the device route")
 
     body = check_growth_table(out_big, tg.N_PATHS, "histgrowth")
     body_masked = check_growth_table(out_masked, n_subset, "masked histgrowth")
@@ -741,7 +869,9 @@ def phase_main_path(dev, single):
         fail(f"small hist on cuda != numpy oracle:\n{got}\n{want}")
     print("[main] small hist -c all -S on cuda == numpy oracle")
     # the edge pass: the largest M the path hands pt_fused_hist
-    return launches, max(calls["pt_fused_hist"], key=lambda a: a[0].shape[1])
+    edge_hist = max(calls["pt_fused_hist"], key=lambda a: a[0].shape[1])
+    routes = (calls["pt_fused_hist"], host_calls["pt_fused_hist"], parse_calls)
+    return launches, edge_hist, routes
 
 
 def check_ordered_table(out: str, n_groups: int, n_thresholds: int, what: str) -> str:
@@ -809,7 +939,7 @@ def phase_group_path(dev, single):
             ordered_edge = calls["pt_ordered_growth"]
         if what == "similarity -c node":
             similarity_node = calls["pt_similarity"]
-            parse_node = parse_calls
+            parse_node = parse_calls["pt_parse_pack"]
         delta = {k: kernels.launches[k] - before[k] for k in kernels.launches}
         if what in SHARDED_RUNS:
             single[what] = (argv, table(out)[0], delta, per_matrix(calls), wall)
@@ -828,10 +958,13 @@ def phase_group_path(dev, single):
             fail(f"{what} launched pt_ordered_growth fewer than 3 times")
         if what.startswith("similarity") and delta["pt_similarity"] < 1:
             fail(f"{what} did not launch pt_similarity")
-        # one parse a build that counts no edges (an ordered run builds twice)
-        want_parse = 0 if what.endswith("-c edge") else 2 if what.startswith("ordered") else 1
-        if delta["pt_parse_pack"] != want_parse:
-            fail(f"{what} launched pt_parse_pack {delta['pt_parse_pack']} times, not {want_parse}")
+        # one parse a build, of its node or its edge rows (an ordered run
+        # builds twice)
+        builds = 2 if what.startswith("ordered") else 1
+        edge = what.endswith("-c edge")
+        want = {"pt_parse_pack": 0 if edge else builds, "pt_parse_pack_edges": builds if edge else 0}
+        if {k: delta[k] for k in want} != want:
+            fail(f"{what} launched {({k: delta[k] for k in want})}, not {want}")
         if what.startswith("ordered"):
             body = check_ordered_table(out, tg.N_PATHS, 3, what)
         else:
@@ -874,30 +1007,54 @@ def phase_group_path(dev, single):
 @contextlib.contextmanager
 def capture_parse():
     """Record the arguments that the streamed build hands
-    parse_kernels.parse_pack while the block runs, as (text, descs,
-    node_lens, n_items, n_spans, n_words); the calls go through as before."""
+    parse_kernels.parse_pack, as (text, descs, node_lens, n_items, n_spans,
+    n_words), and parse_kernels.parse_pack_edges, as (text, descs, row_off,
+    adj_ent, n_items, n_words), while the block runs; the calls go through
+    as before."""
     from panacus_torch.ops import parse_kernels
 
-    calls = []
-    parse_pack = parse_kernels.parse_pack
+    calls = {"pt_parse_pack": [], "pt_parse_pack_edges": []}
+    parse_pack, parse_pack_edges = parse_kernels.parse_pack, parse_kernels.parse_pack_edges
 
     def spy(text, descs, M, node_lens, n_items, acc):
-        calls.append((text, descs, node_lens, n_items, (len(acc) - 1) // 2, M.shape[0]))
+        calls["pt_parse_pack"].append(
+            (text, descs, node_lens, n_items, (len(acc) - 1) // 2, M.shape[0]))
         return parse_pack(text, descs, M, node_lens, n_items, acc)
 
-    parse_kernels.parse_pack = spy
+    def spy_edges(text, descs, M, row_off, adj_ent, n_items, err):
+        calls["pt_parse_pack_edges"].append((text, descs, row_off, adj_ent, n_items, M.shape[0]))
+        return parse_pack_edges(text, descs, M, row_off, adj_ent, n_items, err)
+
+    parse_kernels.parse_pack, parse_kernels.parse_pack_edges = spy, spy_edges
     try:
         yield calls
     finally:
-        parse_kernels.parse_pack = parse_pack
+        parse_kernels.parse_pack, parse_kernels.parse_pack_edges = parse_pack, parse_pack_edges
 
 
-def phase_path_kernels(dev, edge_hist, ordered_edge, similarity_node, parse_node, res):
-    """pt_fused_hist, pt_ordered_growth, pt_similarity and pt_parse_pack on
-    the arguments that phases 3 and 4 handed them (the path's own edge M,
-    weights and thresholds; the node M and its weights; every step list of
-    the graph): exact against their plain versions, timed by events and by
-    slope; adds each one's numbers under "path" in res."""
+@contextlib.contextmanager
+def device_route_off():
+    """Builds take the host's route while the block runs (the host
+    tokenizer and packs, M uploaded), as where stream.parse_on_device
+    refuses them."""
+    from panacus_torch import stream
+
+    on = stream.parse_on_device
+    stream.parse_on_device = lambda *a, **k: False
+    try:
+        yield
+    finally:
+        stream.parse_on_device = on
+
+
+def phase_path_kernels(dev, edge_hist, ordered_edge, similarity_node, parse_node, routes, res):
+    """pt_fused_hist, pt_ordered_growth, pt_similarity, pt_parse_pack and
+    pt_parse_pack_edges on the arguments that phases 3 and 4 handed them
+    (the path's own edge M, weights and thresholds; the node M and its
+    weights; every step list of the graph and its adjacency): exact against
+    their plain versions, timed by events and by slope; adds each one's
+    numbers under "path" in res. Then pt_fused_hist on the two routes' M
+    (compare_hist_routes), under "routes"."""
     import torch
 
     from panacus_torch.kernel_times import ORDERED_QC, copies, event_ms, slope_ms
@@ -967,6 +1124,100 @@ def phase_path_kernels(dev, edge_hist, ordered_edge, similarity_node, parse_node
         fail(f"the build of similarity -c node made {len(parse_node)} parse calls, not 1")
     got = check_parse("path: similarity -c node's step lists", parse_node[0], flush)
     res["pt_parse_pack"]["path"] = {k: got[k] for k in ("ms", "slope_ms", "bound_ms", "at")}
+    parse_edges = routes[2]["pt_parse_pack_edges"]
+    if len(parse_edges) != 1:
+        fail(f"the build of histgrowth -c all made {len(parse_edges)} edge parse calls, not 1")
+    got = check_parse_edges("path: histgrowth -c all's step lists", parse_edges[0], flush)
+    res["pt_parse_pack_edges"]["path"] = {k: got[k] for k in ("ms", "slope_ms", "bound_ms", "at")}
+    res["pt_fused_hist"]["routes"] = compare_hist_routes(*routes, flush)
+
+
+def compare_hist_routes(device_route, host_route, parses, flush):
+    """pt_fused_hist on the node and the edge M that the unmasked -c all's
+    device route left (rows ORed in by pt_parse_pack and
+    pt_parse_pack_edges) against those the host route uploaded: the same M
+    and weights; each call timed by events (L2 flushed) and by slope on
+    either route's tensors; then each route's last writes to M replayed
+    before the two calls, as a command runs them (the device route: both
+    parses into zeroed M; the host route: M's copies from pinned memory),
+    and each call timed by events right after, REPLAYS times, medians."""
+    import torch
+
+    from panacus_torch.kernel_times import event_ms, slope_ms
+    from panacus_torch.ops import hist_kernels as hk
+    from panacus_torch.ops import parse_kernels as pk
+
+    if len(device_route) != len(host_route) or len(device_route) < 2:
+        fail(f"histgrowth -c all made {len(device_route)} / {len(host_route)} pt_fused_hist "
+             f"calls on the device / host route")
+    for (Md, Wd, nd), (Mh, Wh, nh) in zip(device_route, host_route):
+        if nd != nh or not (torch.equal(Md, Mh) and torch.equal(Wd, Wh)):
+            fail("pt_fused_hist: the device route's M or weights differ from the host route's")
+    # the node pass reads the narrowest M, the edge pass the widest
+    by_width = sorted(range(len(device_route)), key=lambda i: device_route[i][0].shape[1])
+    device_route = [device_route[by_width[0]], device_route[by_width[-1]]]
+    host_route = [host_route[by_width[0]], host_route[by_width[-1]]]
+    out = {}
+    for what, (Md, W, n_bins), (Mh, _, _) in zip(("node", "edge"), device_route, host_route):
+        out[what] = {
+            f"{route}_{how}": t
+            for route, M in (("device", Md), ("host", Mh))
+            for how, t in (
+                ("ms", event_ms(lambda M=M: hk.fused_hist(M, W, n_bins), 20, flush)),
+                ("slope_ms", slope_ms([lambda M=M: hk.fused_hist(M, W, n_bins)])),
+            )
+        }
+    (node_M, node_W, node_bins), (edge_M, edge_W, edge_bins) = device_route
+    text, descs, lens, n_items, n_spans, _ = parses["pt_parse_pack"][0]
+    _, _, row_off, adj_ent, _, _ = parses["pt_parse_pack_edges"][0]
+    Mn, Me = torch.zeros_like(node_M), torch.zeros_like(edge_M)
+    acc = torch.zeros(1 + 2 * n_spans, dtype=torch.int64, device=Mn.device)
+    err = torch.zeros(1, dtype=torch.int64, device=Mn.device)
+    pinned = [M.cpu().pin_memory() for M in (node_M, edge_M)]
+
+    def device_writes():
+        Mn.zero_()
+        Me.zero_()
+        acc.zero_()
+        acc[0] = err[0] = int(pk.ERR_NONE)
+        pk.parse_pack(text, descs, Mn, lens, n_items, acc)
+        pk.parse_pack_edges(text, descs, Me, row_off, adj_ent, n_items, err)
+
+    def host_writes():
+        Mn.copy_(pinned[0], non_blocking=True)
+        Me.copy_(pinned[1], non_blocking=True)
+
+    for route, writes in (("device", device_writes), ("host", host_writes)) * 2:
+        times = []
+        for _ in range(REPLAYS):
+            writes()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            hk.fused_hist(Mn, node_W, node_bins)
+            ev[1].record()
+            hk.fused_hist(Me, edge_W, edge_bins)
+            ev[2].record()
+            times.append(ev)
+        torch.cuda.synchronize()
+        if not (torch.equal(Mn, node_M) and torch.equal(Me, edge_M)):
+            fail(f"pt_fused_hist: the {route} route's replayed writes left another M")
+        for i, what in enumerate(("node", "edge")):
+            ms = statistics.median(e[i].elapsed_time(e[i + 1]) for e in times)
+            out[what].setdefault(f"{route}_after_writes_ms", []).append(ms)
+    for what, t in out.items():
+        print(
+            f"[path] pt_fused_hist {what} M, device route / host route (same M, exact): "
+            f"{t['device_ms']:.4f} / {t['host_ms']:.4f} ms by events (L2 flushed), "
+            f"{t['device_slope_ms']:.4f} / {t['host_slope_ms']:.4f} by slope; right after the "
+            f"route's writes, in two turns: "
+            + " / ".join(", ".join(f"{x:.4f}" for x in t[f"{r}_after_writes_ms"])
+                         for r in ("device", "host"))
+            + " ms"
+        )
+    return out
+
+
+REPLAYS = 20  # replays of each route's writes before the two pt_fused_hist calls
 
 
 # phase 6: the report path, a report of two runs on the graph of phase 3
@@ -1305,10 +1556,11 @@ def check_scaled(what, k, launches, one):
     """Each kernel launched k times as often on k shards as on one, but for
     the step-list parse, which only a build on one device runs
     (stream.parse_on_device): it must not run on k > 1 shards."""
+    parse = ("pt_parse_pack", "pt_parse_pack_edges")
     bad = {
         n: (launches[n], one[n])
         for n in one
-        if launches[n] != (0 if n == "pt_parse_pack" and k > 1 else k * one[n])
+        if launches[n] != (0 if n in parse and k > 1 else k * one[n])
     }
     if bad:
         fail(f"{what}: launches on {k} shards are not {k} x one device's: {bad}")
@@ -1728,9 +1980,11 @@ def busy_in(busy, a, b):
 def trace_scopes(trace_path: str):
     """From a chrome trace of one CLI run: each phase scope (runtime's
     phase_timer) with its wall, the device's busy time inside it and its
-    longest idle gap (us); the slab scopes of the streamed build
-    (`build.tokenize`, `build.pack`, one a slab): their number and summed
-    wall (us); the device's busy time in all."""
+    longest idle gap (us); the build scopes of the streamed build (on the
+    host's route `build.tokenize` and `build.pack`, one a slab; on the
+    device route `build.stage`, then `build.parse` and `build.wait` a
+    pass): their number and summed wall (us); the device's busy time in
+    all."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     busy = union(
@@ -1745,7 +1999,7 @@ def trace_scopes(trace_path: str):
             t, gap = busy_in(busy, e["ts"], e["ts"] + e["dur"])
             w, b, g = phases.get(e["name"], (0.0, 0.0, 0.0))
             phases[e["name"]] = (w + e["dur"], b + t, max(g, gap))
-    kinds = ("tokenize", "pack")
+    kinds = ("tokenize", "pack", "stage", "parse", "wait")
     slabs = {k: [e["dur"] for e in notes if e["name"] == "build." + k] for k in kinds}
     return {
         "phases": phases,
@@ -1765,7 +2019,7 @@ def print_scopes(tag: str, scopes, wall: float) -> None:
                 f"{g / 1e3:.4f} ms"
             )
     print(
-        f"[{tag}]   slab scopes {scopes['n_slab_scopes']}, summed "
+        f"[{tag}]   build scopes {scopes['n_slab_scopes']}, summed "
         + ", ".join(f"{k} {v / 1e3:.4f} ms" for k, v in scopes["slab_us"].items())
     )
     print(
@@ -1825,8 +2079,10 @@ def phase_front_end():
                     fail(f"{what}: TSV on cuda differs from the port's run on cpu")
                 if launches["pt_fused_hist"] < 1:
                     fail(f"{what} did not launch pt_fused_hist")
-                if launches["pt_parse_pack"] != (name in ("node", "gz_node")):
-                    fail(f"{what} launched pt_parse_pack {launches['pt_parse_pack']} times")
+                want = {"pt_parse_pack": int(name != "edge"),
+                        "pt_parse_pack_edges": int(name in ("all", "edge"))}
+                if {k: launches[k] for k in want} != want:
+                    fail(f"{what} launched {({k: launches[k] for k in want})}, not {want}")
                 if not any(l.startswith("streamed membership build:") for l in log_.lines):
                     fail(f"{what} did not take the streamed build")
                 if log_.warnings:
@@ -1870,8 +2126,12 @@ def phase_front_end():
         f"{sorted(scopes['phases'])}, missing {missing}"
     )
     print_scopes("front", scopes, wall)
-    if missing or scopes["n_slab_scopes"].get("tokenize", 0) < 3:
-        fail(f"the trace lacks phase or slab scopes: {scopes['phases'].keys()}, {scopes['n_slab_scopes']}")
+    # the device route: one stage, a parse and a wait for the node rows and
+    # for the edge rows, no slab of the host's tokenizer
+    want = {"tokenize": 0, "pack": 0, "stage": 1, "parse": 2, "wait": 2}
+    if missing or scopes["n_slab_scopes"] != want:
+        fail(f"the trace lacks phase scopes or has other build scopes than {want}: "
+             f"{scopes['phases'].keys()}, {scopes['n_slab_scopes']}")
     print(f"[front] launches in phase 9: {total}")
     print(f"[front] phase 9 took {time.perf_counter() - t_phase:.1f} s")
     return total
@@ -1950,12 +2210,12 @@ def main() -> int:
     res = phase_kernels(dev)
     res.update(phase_group_kernels(dev))
     single = {}  # the one-card runs that phase 7 repeats on shards
-    launches, edge_hist = phase_main_path(dev, single)
+    launches, edge_hist, routes = phase_main_path(dev, single)
     group_launches, ordered_edge, similarity_node, parse_node = phase_group_path(dev, single)
     for name in ("pt_ordered_growth", "pt_similarity", "pt_parse_pack"):
         launches[name] = group_launches[name]
-    phase_path_kernels(dev, edge_hist, ordered_edge, similarity_node, parse_node, res)
-    del edge_hist, ordered_edge, similarity_node, parse_node
+    phase_path_kernels(dev, edge_hist, ordered_edge, similarity_node, parse_node, routes, res)
+    del edge_hist, ordered_edge, similarity_node, parse_node, routes
     probe_res, probe_launches, read_bps = phase_probe(dev, smi)
     res.update(probe_res)
     launches.update(probe_launches)

@@ -151,7 +151,7 @@ class GraphBroker:
         # the build will parse the step lists on this device: the index
         # starts their upload (GraphStorage, where the names allow it)
         masked = bool(state.subset or state.exclude)
-        on_device = stream.parse_on_device(self._count_types(), self.devices, masked)
+        on_device = stream.parse_on_device(self.devices, masked)
         with phase_timer("index"):
             self.graph_aux = GraphStorage(
                 gfa_file, index_edges, nice, self.devices[0] if on_device else None

@@ -69,7 +69,13 @@ _SIGNATURES = {
     #  acc, n_spans, stream)
     "pt_parse_pack": (
         "parse",
-        [_P, _I64, _P, _I32, _P, _I64, _P, _I64, _P, _I64, _P],
+        [_P, _I64, _P, _I64, _P, _I64, _P, _I64, _P, _I64, _P],
+    ),
+    # (text, n_bytes, descs, n_descs, M, row_stride, row_off, adj_ent,
+    #  n_items, err, stream)
+    "pt_parse_pack_edges": (
+        "parse",
+        [_P, _I64, _P, _I64, _P, _I64, _P, _P, _I64, _P, _P],
     ),
     # (M, n_words, n_items, W, salt, scratch, stream)
     "pt_xor_fold": ("probe", [_P, _I64, _I64, _P, _I32, _P, _P]),

@@ -12,17 +12,24 @@ slot, the counts, the bp sums, all added to). A malformed token (checked as
 the host tokenizer checks it) or an id outside 1..n_items lowers the error
 slot, ERR_NONE while none failed, to the least failing span.
 
+`parse_pack_edges` reads the same text and rows for a build that counts
+edges: each pair of consecutive steps of a list is looked up in the L
+lines' CSR adjacency (native.build_edge_adj: row_off int64 [n_items + 2],
+adj_ent uint64 [E] as int64) under its canonical key, and the group bit is
+ORed into the edge M at [word, edge id]. A malformed token or a pair with
+no L line lowers its one error slot (err: int64 [1]) the same way.
+
 The copy is a `StepUpload`, which GraphStorage starts on a worker thread
 while the index still runs (bytes from the first P/W line to the last): the
 same pageable copy as `upload`, on a stream of the job's own, so that it is
 off the main thread. A build that finds no such upload in flight copies
 with `upload` on the calling thread.
 
-The wrapper takes the plain version for tensors on the CPU and launches
-csrc/parse.cu:pt_parse_pack for tensors on a CUDA device; it never falls
-back from one to the other. Where a list fails, the plain version leaves
-M and the sums as they were and the kernel leaves them undefined: either
-way the caller discards the build.
+Each wrapper takes the plain version for tensors on the CPU and launches
+csrc/parse.cu:pt_parse_pack or pt_parse_pack_edges for tensors on a CUDA
+device; it never falls back from one to the other. Where a list fails, the
+plain versions leave M and the sums as they were and the kernels leave
+them undefined: either way the caller discards the build.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ from __future__ import annotations
 import contextlib
 import warnings
 from concurrent.futures import ThreadPoolExecutor, wait
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,13 +60,15 @@ def _values(s: np.ndarray, starts: np.ndarray, ends: np.ndarray) -> np.ndarray:
     return vals.view(np.int64)
 
 
-def list_ids(s: np.ndarray, walk: bool, n_items: int) -> Optional[np.ndarray]:
-    """The node ids of one step list's bytes, or None where a token is
-    malformed or an id lies outside 1..n_items. P: tokens split at ',',
-    each digits then '+'/'-'; W: tokens at each '>'/'<', each followed by
-    digits."""
+def list_steps(
+    s: np.ndarray, walk: bool, n_items: int
+) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """(ids, orient) of one step list's bytes (orient 1 for '-' and '<', as
+    the host tokenizer has it), or None where a token is malformed or an
+    id lies outside 1..n_items. P: tokens split at ',', each digits then
+    '+'/'-'; W: tokens at each '>'/'<', each followed by digits."""
     if not len(s):
-        return np.zeros(0, dtype=np.int64)
+        return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.uint8)
     other = (s < 48) | (s > 57)  # bytes that are not digits
     if walk:
         seps = np.flatnonzero((s == 62) | (s == 60))
@@ -68,6 +77,7 @@ def list_ids(s: np.ndarray, walk: bool, n_items: int) -> Optional[np.ndarray]:
         starts = seps + 1
         ends = np.append(seps[1:], len(s))
         other[seps] = False
+        orient = (s[seps] == 60).astype(np.uint8)
     else:
         commas = np.flatnonzero(s == 44)
         starts = np.concatenate([[0], commas + 1])
@@ -79,12 +89,40 @@ def list_ids(s: np.ndarray, walk: bool, n_items: int) -> Optional[np.ndarray]:
             return None
         other[commas] = False
         other[ends] = False
+        orient = (s[ends] == 45).astype(np.uint8)
     if (ends <= starts).any() or other.any():
         return None
     ids = _values(s, starts, ends)
     if len(ids) and (ids.min() < 1 or ids.max() > n_items):
         return None
-    return ids
+    return ids, orient
+
+
+def adjacency_keys(row_off: np.ndarray, adj_ent: np.ndarray) -> np.ndarray:
+    """The (row, key) of each entry of the CSR adjacency
+    (native.build_edge_adj) as one uint64, row << 31 | key: ascending, as
+    the rows ascend and each row's keys do."""
+    rows = np.repeat(np.arange(len(row_off) - 1, dtype=np.uint64), np.diff(row_off))
+    return rows << np.uint64(31) | adj_ent.view(np.uint64) >> np.uint64(32)
+
+
+def edge_ids(keys: np.ndarray, adj_ent: np.ndarray, ids: np.ndarray, orient: np.ndarray):
+    """The edge id of each pair of consecutive steps (ids, orient) in the CSR
+    adjacency whose entries are adj_ent and whose adjacency_keys are `keys`,
+    0 where the pair has no L line: the pair flipped where u > v or u == v
+    and the first step is backward (reference: Edge::canonical,
+    graph.rs:142-148), then (u, v << 2 | o1 << 1 | o2) searched."""
+    u, v = ids[:-1], ids[1:]
+    o1, o2 = orient[:-1].astype(np.int64), orient[1:].astype(np.int64)
+    swap = (u > v) | ((u == v) & (o1 == 1))
+    cu, cv = np.where(swap, v, u), np.where(swap, u, v)
+    key = cv << 2 | np.where(swap, o2 ^ 1, o1) << 1 | np.where(swap, o1 ^ 1, o2)
+    want = cu.astype(np.uint64) << np.uint64(31) | key.astype(np.uint64)
+    if not len(keys):
+        return np.zeros(len(want), dtype=np.int64)
+    at = np.minimum(np.searchsorted(keys, want), len(keys) - 1)
+    eids = (adj_ent.view(np.uint64)[at] & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    return np.where(keys[at] == want, eids, 0)
 
 
 def descriptors(
@@ -170,10 +208,11 @@ def parse_pack_ref(
     a = acc.numpy()
     n_spans = (len(a) - 1) // 2
     for begin, end, span, meta in descs.numpy().tolist():
-        ids = list_ids(s[begin:end], bool(meta >> 8 & 1), n_items)
-        if ids is None:
+        got = list_steps(s[begin:end], bool(meta >> 8 & 1), n_items)
+        if got is None:
             a[0] = min(a[0], span)
             continue
+        ids = got[0]
         if meta >> 16 >= 0:
             rows[meta >> 16, ids] |= np.uint32(1 << (meta & 31))
         a[1 + span] += len(ids)
@@ -217,4 +256,74 @@ def parse_pack(
             "pt_parse_pack", text.data_ptr(), text.numel(), descs.data_ptr(),
             descs.shape[0], M.data_ptr(), M.shape[1], node_lens.data_ptr(),
             n_items, acc.data_ptr(), (len(acc) - 1) // 2, stream,
+        )
+
+
+def parse_pack_edges_ref(
+    text: torch.Tensor,
+    descs: torch.Tensor,
+    M: torch.Tensor,
+    row_off: torch.Tensor,
+    adj_ent: torch.Tensor,
+    n_items: int,
+    err: torch.Tensor,
+) -> None:
+    """Plain version of pt_parse_pack_edges, list by list on the host."""
+    s = text.numpy()
+    rows = M.numpy().view(np.uint32)
+    ent = adj_ent.numpy()
+    keys = adjacency_keys(row_off.numpy(), ent)
+    e = err.numpy()
+    for begin, end, span, meta in descs.numpy().tolist():
+        got = list_steps(s[begin:end], bool(meta >> 8 & 1), n_items)
+        eids = None if got is None else edge_ids(keys, ent, *got)
+        if eids is None or not eids.all():
+            e[0] = min(e[0], span)
+            continue
+        if meta >> 16 >= 0:
+            rows[meta >> 16, eids] |= np.uint32(1 << (meta & 31))
+
+
+def parse_pack_edges(
+    text: torch.Tensor,
+    descs: torch.Tensor,
+    M: torch.Tensor,
+    row_off: torch.Tensor,
+    adj_ent: torch.Tensor,
+    n_items: int,
+    err: torch.Tensor,
+) -> None:
+    """OR the group bit of every pair of consecutive steps of the lists of
+    `text` that `descs` names into the edge M at its edge id, and lower err
+    where a token or a pair fails (pt_parse_pack_edges on CUDA, on the
+    current stream)."""
+    if text.dtype != torch.uint8 or text.dim() != 1 or not text.is_contiguous():
+        raise ValueError("text must be a contiguous uint8 vector")
+    if (
+        descs.dtype != torch.int64
+        or descs.dim() != 2
+        or descs.shape[1] != 4
+        or descs.shape[0] < 1
+        or not descs.is_contiguous()
+    ):
+        raise ValueError(f"descs must be a contiguous int64 [n >= 1, 4], got {tuple(descs.shape)}")
+    if M.dtype != torch.int32 or M.dim() != 2 or not M.is_contiguous() or M.shape[1] <= len(adj_ent):
+        raise ValueError("M must be a contiguous int32 [n_words, n_items_pad > n_edges] tensor")
+    if row_off.dtype != torch.int64 or row_off.dim() != 1 or len(row_off) != n_items + 2:
+        raise ValueError("row_off must be int64 of length n_items + 2")
+    if adj_ent.dtype != torch.int64 or adj_ent.dim() != 1 or not adj_ent.is_contiguous():
+        raise ValueError("adj_ent must be a contiguous int64 vector")
+    if err.dtype != torch.int64 or err.shape != (1,):
+        raise ValueError("err must be an int64 vector of 1")
+    if M.device.type == "cpu":
+        return parse_pack_edges_ref(text, descs, M, row_off, adj_ent, n_items, err)
+    for t in (text, descs, row_off, adj_ent, err):
+        if t.device != M.device:
+            raise ValueError(f"operands on {t.device} and {M.device}")
+    stream = torch.cuda.current_stream(M.device).cuda_stream
+    with torch.cuda.device(M.device):
+        kernels.launch(
+            "pt_parse_pack_edges", text.data_ptr(), text.numel(), descs.data_ptr(),
+            descs.shape[0], M.data_ptr(), M.shape[1], row_off.data_ptr(),
+            adj_ent.data_ptr(), n_items, err.data_ptr(), stream,
         )

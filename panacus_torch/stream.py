@@ -29,27 +29,35 @@ SlabbedItemTable of node runs and, for edges, a LazyEdgeTable that derives
 edge ids from the node runs on demand. Both only keep references to the
 slabs the tokenizer has already produced.
 
-An unmasked build in one process that counts no edges, on one CUDA
-device, of a graph whose node names are 1..n (identity names) parses its
-step lists on the card instead (`parse_on_device`): the edge pack needs the
-host's ids and orientations in the tokenizer's pass, the node rows do not,
-so the two routes share no parsing. The broker asks the same predicate
-when it loads the graph, and GraphStorage then starts the upload of the
-GFA's bytes from the first P/W line to the last on a worker thread
+An unmasked build in one process, on one CUDA device, of a graph whose
+node names are 1..n (identity names) parses its step lists on the card
+instead (`parse_on_device`), whatever it counts. The broker asks the same
+predicate when it loads the graph, and GraphStorage then starts the upload
+of the GFA's bytes from the first P/W line to the last on a worker thread
 (parse_kernels.StepUpload, span `index.upload`), which runs while the index
-and the build's set-up go on. The build takes that upload (span
+and the build's set-up go on. A build that counts edges first waits for
+the L-line indexer (`edge_index.wait`) and its CSR adjacency
+(`edge_index.adj`), which goes up with the build; where the graph is past
+the adjacency's packed layout (`graph.edge_adj()` is None) the whole build
+takes the host's route. The build's first pass takes the upload (span
 `build.stage`, with the `bytes` from the first step list to the last: the
 wait for the job's copy), or, where none is in flight (a second build of
-the same load), copies those bytes itself; one launch parses every
-slab's lists into M's rows on the copy stream (ops/parse_kernels.parse_pack,
-span `build.parse`); one copy back gives every path's length (span
-`build.wait`). The node table is then a
-LazyNodeTable, which parses again on the host only for a reader of the ids
-(the coverage-table export). A malformed step list makes this route
-return None too. The build adds `node_slabs` and `node_slabs_on_device` to
-`abaci_by_total`, and `uploads` (1 where it copied step lists to the card,
-else 0) and `uploads_early` (1 where it took the upload started while
-indexing).
+the same load), copies those bytes itself. One launch parses every slab's
+lists into the node M's rows on the copy stream
+(ops/parse_kernels.parse_pack, span `build.parse`); one copy back gives
+every path's length (span `build.wait`). One more launch on the same text
+and descriptor rows looks up each pair of consecutive steps in the
+adjacency and ORs the group bit into the edge M
+(parse_kernels.parse_pack_edges; its own `build.parse` and `build.wait`).
+The node table is then a LazyNodeTable and the edge table a
+LazyParsedEdgeTable, which parse again on the host only for a reader of
+the ids (the coverage-table export). A malformed step list, or a pair of
+steps with no L line, makes this route return None too. The build adds
+`node_slabs` and `node_slabs_on_device`, `edge_slabs_on_device` (the edge
+slabs whose rows the card wrote; `edge_slabs_repacked` is 0 there), and
+`uploads` (1 where it copied step lists to the card, else 0) and
+`uploads_early` (1 where it took the upload started while indexing) to
+`abaci_by_total`.
 
 Applicability: unmasked runs (no subset/exclude coordinates) whose step
 lists the C tokenizer takes. Masked runs take the classic itemizer.
@@ -207,13 +215,20 @@ class LazyNodeTable:
         self._items: Optional[np.ndarray] = None
         self._prefsum: Optional[np.ndarray] = None
 
+    def _path(self, path_idx: int) -> np.ndarray:
+        return self._graph.path_item_run(path_idx)[0]
+
+    def _every_path(self) -> Tuple[np.ndarray, np.ndarray]:
+        items, _, prefsum, _ = self._graph.all_path_item_runs()
+        return items, prefsum
+
     def path_slice(self, path_idx: int) -> np.ndarray:
         if self._items is not None:
             return self._items[self._prefsum[path_idx] : self._prefsum[path_idx + 1]]
-        return self._graph.path_item_run(path_idx)[0]
+        return self._path(path_idx)
 
     def _materialize(self) -> None:
-        self._items, _, self._prefsum, _ = self._graph.all_path_item_runs()
+        self._items, self._prefsum = self._every_path()
 
     @property
     def items(self) -> np.ndarray:
@@ -228,23 +243,35 @@ class LazyNodeTable:
         return self._prefsum
 
 
+class LazyParsedEdgeTable(LazyNodeTable):
+    """Edge ItemTable of a build that counted the edges on the card: a
+    reader's node runs are parsed again on the host as LazyNodeTable parses
+    them, and their pairs looked up in the CSR adjacency
+    (GraphStorage.edge_runs)."""
+
+    def _path(self, path_idx: int) -> np.ndarray:
+        ids, orient = self._graph.path_item_run(path_idx)
+        return self._graph.edge_runs(ids, orient, np.array([0, len(ids)], dtype=np.int64))[0]
+
+    def _every_path(self) -> Tuple[np.ndarray, np.ndarray]:
+        ids, orient, prefsum, _ = self._graph.all_path_item_runs()
+        return self._graph.edge_runs(ids, orient, prefsum)
+
+
 def _parses_on(device) -> bool:
     """The device route's device: a CUDA card."""
     return device.type == "cuda"
 
 
-def parse_on_device(
-    count_types: List[CountType], devices: Devices, masked: bool, identity_names: bool = True
-) -> bool:
-    """The node rows are parsed on the card: one process, one CUDA device,
-    no edges counted, no subset or exclude coordinates (`masked`), identity
-    node names. The broker asks before the index knows the names, and
-    GraphStorage checks them; the build asks with them."""
+def parse_on_device(devices: Devices, masked: bool, identity_names: bool = True) -> bool:
+    """The step lists are parsed on the card: one process, one CUDA device,
+    no subset or exclude coordinates (`masked`), identity node names. The
+    broker asks before the index knows the names, and GraphStorage checks
+    them; the build asks with them."""
     return (
         world()[1] == 1
         and len(devices) == 1
         and _parses_on(devices[0])
-        and CountType.EDGE not in count_types
         and not masked
         and identity_names
     )
@@ -264,45 +291,103 @@ def _step_text(graph: GraphStorage, lo: int, hi: int, device) -> Tuple[torch.Ten
     return text, up.base, True
 
 
+def _on(stream):
+    """The context that queues work on `stream` (None: the CPU, no stream)."""
+    return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+
+
+class _StepLists:
+    """The slabs' step lists as the device route parses them: the
+    descriptor rows, and the text on the card, which the first pass that
+    asks stages (span `build.stage`) and the later ones reuse."""
+
+    def __init__(self, graph: GraphStorage, slabs: List[_Slab]):
+        self.order = np.concatenate([s.path_ids for s in slabs])
+        starts, ends, walk = graph.step_lists(self.order)
+        words = np.concatenate([np.full(len(s.path_ids), s.word, np.int32) for s in slabs])
+        bits = np.concatenate([s.gidx_rel for s in slabs])
+        self._lo, self._hi, self.descs = parse_kernels.descriptors(starts, ends, walk, words, bits)
+        self._graph = graph
+        self._text: Optional[torch.Tensor] = None
+        self.uploads = NO_UPLOADS
+
+    def text(self, device) -> Optional[torch.Tensor]:
+        """The text, for work queued on the current stream of `device`; None
+        where every list is empty."""
+        if not len(self.descs):
+            return None
+        if self._text is None:
+            with span("build.stage") as sp:
+                text, base, early = _step_text(self._graph, self._lo, self._hi, device)
+                sp.add(bytes=self._hi - self._lo)
+            self.uploads = dict(uploads=1, uploads_early=int(early))
+            self.descs[:, :2] += self._lo - base
+            self._text = text
+        elif device.type == "cuda":
+            self._text.record_stream(torch.cuda.current_stream(device))
+        return self._text
+
+
 def _node_rows_on_device(
     graph: GraphStorage,
+    lists: _StepLists,
     slabs: List[_Slab],
     node_stream: MembershipStream,
     paths_len: Dict[PathSegment, Tuple[int, int]],
-) -> Optional[Dict[str, int]]:
-    """Build node_stream's rows from the slabs' raw step lists, one upload
-    and one pt_parse_pack, and fill paths_len; the upload's counts, or None
-    where a step list is malformed (the caller discards the stream)."""
-    order = np.concatenate([s.path_ids for s in slabs])
-    starts, ends, walk = graph.step_lists(order)
-    words = np.concatenate([np.full(len(s.path_ids), s.word, np.int32) for s in slabs])
-    bits = np.concatenate([s.gidx_rel for s in slabs])
-    lo, hi, descs = parse_kernels.descriptors(starts, ends, walk, words, bits)
-    n_spans, n_items = len(order), graph.node_count
+) -> bool:
+    """Build node_stream's rows from the slabs' raw step lists, one
+    pt_parse_pack, and fill paths_len; False where a step list is malformed
+    (the caller discards the stream)."""
+    n_spans, n_items = len(lists.order), graph.node_count
     M, stream = node_stream.device_rows()
-    uploads = NO_UPLOADS
-    with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+    with _on(stream):
         lens = torch.from_numpy(graph.node_lens.view(np.int32)).to(M.device, non_blocking=True)
         acc = torch.zeros(1 + 2 * n_spans, dtype=torch.int64, device=M.device)
         acc[0] = int(parse_kernels.ERR_NONE)
-        if len(descs):
-            with span("build.stage") as sp:
-                text, base, early = _step_text(graph, lo, hi, M.device)
-                sp.add(bytes=hi - lo)
-            uploads = dict(uploads=1, uploads_early=int(early))
-            descs[:, :2] += lo - base
+        text = lists.text(M.device)
+        if text is not None:
             with span("build.parse"):
-                d = torch.from_numpy(descs).to(M.device, non_blocking=True)
+                d = torch.from_numpy(lists.descs).to(M.device, non_blocking=True)
                 parse_kernels.parse_pack(text, d, M, lens, n_items, acc)
         with span("build.wait"):
             got = acc.cpu().numpy()
     if got[0] != parse_kernels.ERR_NONE:
-        return None
+        return False
     segs = graph.path_segments
-    for j, pid in enumerate(order):
+    for j, pid in enumerate(lists.order):
         paths_len[segs[int(pid)]] = (int(got[1 + j]), int(got[1 + n_spans + j]))
     node_stream.written([s.word for s in slabs if s.word >= 0])
-    return uploads
+    return True
+
+
+def _edge_rows_on_device(
+    graph: GraphStorage,
+    lists: _StepLists,
+    slabs: List[_Slab],
+    edge_stream: MembershipStream,
+    adj: Tuple[np.ndarray, np.ndarray],
+) -> bool:
+    """Build edge_stream's rows from the same step lists and the L lines'
+    CSR adjacency `adj` (uploaded with them), one pt_parse_pack_edges; False
+    where a step list is malformed or a pair of steps has no L line (the
+    caller discards the stream)."""
+    M, stream = edge_stream.device_rows()
+    with _on(stream):
+        err = torch.full((1,), int(parse_kernels.ERR_NONE), dtype=torch.int64, device=M.device)
+        text = lists.text(M.device)
+        if text is not None:
+            with span("build.parse"):
+                row_off, adj_ent = (
+                    torch.from_numpy(a.view(np.int64)).to(M.device, non_blocking=True) for a in adj
+                )
+                d = torch.from_numpy(lists.descs).to(M.device, non_blocking=True)
+                parse_kernels.parse_pack_edges(text, d, M, row_off, adj_ent, graph.node_count, err)
+        with span("build.wait"):
+            got = int(err.cpu()[0])
+    if got != parse_kernels.ERR_NONE:
+        return False
+    edge_stream.written([s.word for s in slabs if s.word >= 0])
+    return True
 
 
 def streamed_total_abaci(
@@ -330,7 +415,11 @@ def streamed_total_abaci(
     need_edge = CountType.EDGE in count_types
     need_node = any(ct != CountType.EDGE for ct in count_types)
 
-    on_device = need_node and parse_on_device(count_types, devices, masked, graph.identity_names)
+    # the edge rows go to the card only where the CSR adjacency holds the
+    # graph's edges, which waits for the L-line indexer
+    on_device = parse_on_device(devices, masked, graph.identity_names) and (
+        not need_edge or graph.edge_adj() is not None
+    )
 
     node_stream = (
         MembershipStream(graph.number_of_items(CountType.NODE), n_groups, devices)
@@ -362,9 +451,12 @@ def streamed_total_abaci(
             graph.number_of_items(CountType.EDGE), n_groups, devices
         )
         edge_fused = graph.edge_adj() is not None
-        edge_table = (
-            LazyEdgeTable(graph, n_paths) if edge_fused else SlabbedItemTable(n_paths)
-        )
+        if not edge_fused:
+            edge_table = SlabbedItemTable(n_paths)
+        elif on_device:  # the card packs the rows: the host keeps no ids
+            edge_table = LazyParsedEdgeTable(graph, n_paths)
+        else:
+            edge_table = LazyEdgeTable(graph, n_paths)
 
     def consume_edge(slab, batch, packed=False):
         """Pack (unless the tokenizer already did, `packed`) and feed the
@@ -414,14 +506,21 @@ def streamed_total_abaci(
 
     host_slabs = slabs
     uploads = NO_UPLOADS
+    edge_slabs = edge_slabs_repacked = edge_slabs_on_device = 0
     if on_device:
-        uploads = _node_rows_on_device(graph, slabs, node_stream, paths_len)
-        if uploads is None:
+        lists = _StepLists(graph, slabs)
+        if need_node and not _node_rows_on_device(graph, lists, slabs, node_stream, paths_len):
             bail()
             return None
-        host_slabs = []  # no edges: nothing is left for the host's pass
+        if need_edge:
+            make_edge_stream()
+            if not _edge_rows_on_device(graph, lists, slabs, edge_stream, graph.edge_adj()):
+                bail()
+                return None
+            edge_slabs = edge_slabs_on_device = sum(s.word >= 0 for s in slabs)
+        uploads = lists.uploads
+        host_slabs = []  # nothing is left for the host's pass
     stashed = []
-    edge_slabs = edge_slabs_repacked = 0
     for i, slab in enumerate(host_slabs):
         if need_edge and edge_stream is None and edge_index_ready():
             # ready the edge stream BEFORE tokenizing so the edge pack
@@ -462,11 +561,14 @@ def streamed_total_abaci(
         if edge_stream is None:  # indexer outlived tokenization: join
             make_edge_stream()
         consume_stashed()
-        add_counts(edge_slabs=edge_slabs, edge_slabs_repacked=edge_slabs_repacked)
-    if need_node:
         add_counts(
-            node_slabs=len(slabs), node_slabs_on_device=len(slabs) if on_device else 0, **uploads
+            edge_slabs=edge_slabs,
+            edge_slabs_repacked=edge_slabs_repacked,
+            edge_slabs_on_device=edge_slabs_on_device,
         )
+    if need_node:
+        add_counts(node_slabs=len(slabs), node_slabs_on_device=len(slabs) if on_device else 0)
+    add_counts(**uploads)
 
     with span("build.finalize"):
         node_engine = node_stream.finalize() if need_node else None

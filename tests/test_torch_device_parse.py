@@ -1,19 +1,26 @@
-"""The streamed build's device route on the CPU: the plain version of
-pt_parse_pack (ops/parse_kernels.parse_pack_ref) and the route's host logic.
+"""The streamed build's device route on the CPU: the plain versions of
+pt_parse_pack and pt_parse_pack_edges (ops/parse_kernels.parse_pack_ref,
+parse_pack_edges_ref) and the route's host logic.
 
-The plain version is held against the host tokenizer (native
+The plain node parse is held against the host tokenizer (native
 pt_tokenize_pack, mode 1 with the fused node pack) on the synthetic step lists
 of tests/parse_cases.py: P and W lists, seven- and eight-digit ids, ids 0
 and n_items + 1, stray bytes, missing orientations, between bytes of other
-fields. The descriptor rows (parse_kernels.descriptors) are checked to name
+fields. The plain edge parse is held against the host's fused edge pack
+(native pt_pack_edges_adj) on the same lists and on the edge cases
+(single-step lists, pairs with u > v, backward self-loops, paths in no
+group, a row past 8 entries, a pair with no L line, which sets the error
+slot). The descriptor rows (parse_kernels.descriptors) are checked to name
 every non-empty list once, in the text's order. The route itself runs
 here with `parse_on_device` forced (it engages only on a CUDA device), so
 parse_pack takes the plain version: on make_graph and the dryrun graph
 (also with its P and W lines among its S lines), with the group file that
-leaves most paths in no group, its M, paths_len and node table equal the
-host tokenizer's build; a malformed step list makes it return None; the
-TSVs of histgrowth -c node and -c bp, info and table equal panacus_tpu's.
-The kernel against this plain version is in test_torch_parse_card.py.
+leaves most paths in no group, its node and edge M, paths_len and item
+tables equal the host tokenizer's build; a malformed step list, or a pair
+of steps with no L line, makes it return None; the TSVs of histgrowth -c
+node, -c bp, -c all and -c edge, info and table (-c edge too) equal
+panacus_tpu's. The kernels against these plain versions are in
+test_torch_parse_card.py.
 """
 
 from __future__ import annotations
@@ -81,7 +88,7 @@ def test_plain_version_equals_the_host_tokenizer(name):
     want = _host_tokenizer(pieces)
     assert (want is not None) == good
     if not good:
-        bad = [s for t, s, _, _, w in pieces if parse_kernels.list_ids(np.frombuffer(t, np.uint8), w, pc.N_ITEMS) is None]
+        bad = [s for t, s, _, _, w in pieces if parse_kernels.list_steps(np.frombuffer(t, np.uint8), w, pc.N_ITEMS) is None]
         assert acc[0] == min(bad)
         return
     row, counts, bp = want
@@ -103,13 +110,50 @@ def test_plain_version_on_random_pieces():
     want = np.zeros((pc.N_WORDS, pc.N_ITEMS + 7), dtype=np.uint32)
     lens = pc.node_lens().numpy()
     for text, span, word, bit, walk in pieces:
-        ids = parse_kernels.list_ids(np.frombuffer(text, np.uint8), walk, pc.N_ITEMS)
-        assert ids is not None
+        got = parse_kernels.list_steps(np.frombuffer(text, np.uint8), walk, pc.N_ITEMS)
+        assert got is not None
+        ids = got[0]
         if word >= 0:
             want[word, ids] |= np.uint32(1 << bit)
         assert acc[1 + span] == len(ids)
         assert acc[1 + len(pieces) + span] == lens[ids].sum()
     np.testing.assert_array_equal(M.numpy().view(np.uint32), want)
+
+
+def _edges_plain(pieces, adj, seed=0):
+    """The edge M and error slot of the plain edge parse on the lists."""
+    text, descs = pc.layout(pieces, seed)
+    M, err = pc.edge_outputs(adj[2])
+    row_off, adj_ent = pc.edge_tensors(adj)
+    parse_kernels.parse_pack_edges(text, descs, M, row_off, adj_ent, pc.N_ITEMS, err)
+    return M, err
+
+
+EDGE_CASES = {**{k: (v[0], []) for k, v in pc.CASES.items()}, **pc.EDGE_CASES}
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_CASES))
+def test_plain_edges_equal_the_host_edge_pack(name):
+    """Each word's edge row equals the host's pt_pack_edges_adj row of that
+    word's lists (word -1: none); where a token fails or a pair has no L
+    line, the error slot names the least such span."""
+    pieces, missing = EDGE_CASES[name]
+    adj = pc.adjacency(pieces, missing)
+    M, err = _edges_plain(pieces, adj)
+    want_err = pc.failing_span(pieces, missing)
+    assert int(err[0]) == want_err
+    if name in pc.CASES:
+        assert (want_err == parse_kernels.ERR_NONE) == pc.CASES[name][1]
+    if want_err == parse_kernels.ERR_NONE:
+        np.testing.assert_array_equal(M.numpy().view(np.uint32), pc.host_edge_rows(pieces, adj))
+
+
+def test_plain_edges_on_random_pieces():
+    pieces = pc.random_pieces(np.random.default_rng(12), 40, 200)
+    adj = pc.adjacency(pieces, seed=5)
+    M, err = _edges_plain(pieces, adj)
+    assert int(err[0]) == parse_kernels.ERR_NONE
+    np.testing.assert_array_equal(M.numpy().view(np.uint32), pc.host_edge_rows(pieces, adj))
 
 
 # -- the descriptor rows ------------------------------------------------------
@@ -167,7 +211,7 @@ def test_descriptors_name_every_list_once(name, order):
     assert acc[0] == parse_kernels.ERR_NONE
     want_M = np.zeros((2, n_items + 1), dtype=np.uint32)
     for k in range(n):
-        ids = parse_kernels.list_ids(np.frombuffer(texts[perm[k]], np.uint8), bool(walk[k]), n_items)
+        ids, _ = parse_kernels.list_steps(np.frombuffer(texts[perm[k]], np.uint8), bool(walk[k]), n_items)
         assert acc[1 + k] == acc[1 + n + k] == len(ids)
         if words[k] >= 0:
             want_M[words[k], ids] |= np.uint32(1 << int(bits[k]))
@@ -204,7 +248,7 @@ def _build(gfa, counts, forced, groups=None):
     from panacus_torch.utils import CountType
 
     cts = [CountType[c.upper()] for c in counts]
-    g = GraphStorage(str(gfa), index_edges=False)
+    g = GraphStorage(str(gfa), index_edges="edge" in counts)
     params = GraphMaskParameters(groupby=str(groups)) if groups else GraphMaskParameters(groupby_haplotype=True)
     mask = GraphMask.from_datamgr(params, g)
     with pytest.MonkeyPatch.context() as mp:
@@ -214,17 +258,20 @@ def _build(gfa, counts, forced, groups=None):
 
 
 def _same_build(g, host, dev):
+    from panacus_torch.utils import CountType
+
     assert host is not None and dev is not None
     for ct in host[0]:
         assert torch.equal(host[0][ct].engine.shards[0], dev[0][ct].engine.shards[0]), ct
     assert list(host[1].paths_len.items()) == list(dev[1].paths_len.items())
     assert host[2:] == dev[2:]
-    h, d = host[1].item_tables[0], dev[1].item_tables[0]
-    assert isinstance(d, stream.LazyNodeTable)
-    for p in range(len(g.path_segments)):
-        np.testing.assert_array_equal(h.path_slice(p), d.path_slice(p))
-    np.testing.assert_array_equal(h.items, d.items)
-    np.testing.assert_array_equal(h.prefsum, d.prefsum)
+    for ct, h, d in zip(host[0], host[1].item_tables, dev[1].item_tables):
+        lazy = stream.LazyParsedEdgeTable if ct == CountType.EDGE else stream.LazyNodeTable
+        assert type(d) is lazy, ct
+        for p in range(len(g.path_segments)):
+            np.testing.assert_array_equal(h.path_slice(p), d.path_slice(p))
+        np.testing.assert_array_equal(h.items, d.items)
+        np.testing.assert_array_equal(h.prefsum, d.prefsum)
 
 
 def _interleaved(graphs, tmp_path):  # noqa: F811
@@ -242,13 +289,14 @@ def _interleaved(graphs, tmp_path):  # noqa: F811
 
 
 @pytest.mark.parametrize("layout", ["as_written", "paths_among_segments"])
-@pytest.mark.parametrize("counts", [("node",), ("bp",), ("node", "bp")], ids="+".join)
+@pytest.mark.parametrize(
+    "counts", [("node",), ("bp",), ("node", "bp"), ("node", "bp", "edge"), ("edge",)], ids="+".join)
 @pytest.mark.parametrize("grouping", ["haplotype", "group_file"])
 def test_route_equals_the_host_tokenizer(graphs, tmp_path, layout, counts, grouping):  # noqa: F811
-    """The dryrun graph (P and W lines): M, paths_len, path order and node
-    table of the route (the plain parse) equal the host tokenizer's, with
-    the group file's trailing slab of paths in no group, also where other
-    lines lie between the step lists."""
+    """The dryrun graph (P and W lines): the node and edge M, paths_len,
+    path order and item tables of the route (the plain parses) equal the
+    host tokenizer's, with the group file's trailing slab of paths in no
+    group, also where other lines lie between the step lists."""
     groups = graphs / "groups.tsv" if grouping == "group_file" else None
     gfa = _interleaved(graphs, tmp_path) if layout == "paths_among_segments" else graphs / "dryrun.gfa"
     g, host = _build(gfa, counts, False, groups)
@@ -256,56 +304,92 @@ def test_route_equals_the_host_tokenizer(graphs, tmp_path, layout, counts, group
     _same_build(g, host, dev)
 
 
-def test_route_on_make_graph_and_its_counts(tmp_path):
+@pytest.mark.parametrize("counts", [("node",), ("node", "bp", "edge"), ("edge",)], ids="+".join)
+def test_route_on_make_graph_and_its_counts(tmp_path, counts):
     """make_graph at 3000 nodes and 90 paths (3 slabs): the build's counts
     say every slab went to the device, and a profiled build has one
-    `build.stage` with the bytes from the first step list to the last."""
+    `build.stage` with the bytes from the first step list to the last, and
+    one parse and one wait for the node rows and one for the edge rows."""
     from panacus_torch import runtime
     from torch.profiler import ProfilerActivity, profile
 
     gfa = tmp_path / "g.gfa"
     testgraphs.make_graph(str(gfa), n_nodes=3000, n_paths=90)
-    g, host = _build(gfa, ("node",), False)
+    g, host = _build(gfa, counts, False)
     runtime.reset_spans()
     with profile(activities=[ProfilerActivity.CPU]):
         with runtime.span("abaci_by_total"):
-            _, dev = _build(gfa, ("node",), True)
+            _, dev = _build(gfa, counts, True)
     _same_build(g, host, dev)
     got = runtime.spans()
     staged = [r for r in got if r.name == "build.stage"]
     spans = np.asarray(g._pw_seq_spans)
     assert [r.counts for r in staged] == [{"bytes": int(spans[:, 1].max() - spans[:, 0].min())}]
-    assert [r.name for r in got].count("build.parse") == 1
-    assert [r.name for r in got].count("build.wait") == 1
+    passes = ("node" in counts) + ("edge" in counts)
+    assert [r.name for r in got].count("build.parse") == passes
+    assert [r.name for r in got].count("build.wait") == passes
+    assert not {"build.tokenize", "build.edge_pack"} & {r.name for r in got}
     top_rec = [r for r in got if r.name == "abaci_by_total"][0]
     # a GraphStorage made with no device to upload to: the build copies
-    assert top_rec.counts == {
-        "node_slabs": 3, "node_slabs_on_device": 3,
-        "uploads": 1, "uploads_early": 0,
-    }
+    want = {"uploads": 1, "uploads_early": 0}
+    if "node" in counts:
+        want.update(node_slabs=3, node_slabs_on_device=3)
+    if "edge" in counts:
+        want.update(edge_slabs=3, edge_slabs_repacked=0, edge_slabs_on_device=3)
+    assert top_rec.counts == want
+    runtime.reset_spans()
+
+
+def test_edges_past_the_adjacency_take_the_host_pass(tmp_path, monkeypatch):
+    """A graph past the CSR adjacency's packed layout (here: the layout
+    capped at one edge): the whole build takes the host tokenizer's pass,
+    node rows and edge rows, and both M equal the host build's."""
+    from panacus_torch import runtime
+    from panacus_torch.gfa import SlabbedItemTable
+    from torch.profiler import ProfilerActivity, profile
+
+    monkeypatch.setattr(native, "ADJ_MAX_EDGES", 1)
+    gfa = tmp_path / "g.gfa"
+    testgraphs.make_graph(str(gfa), n_nodes=3000, n_paths=90)
+    counts = ("node", "bp", "edge")
+    g, host = _build(gfa, counts, False)
+    runtime.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with runtime.span("abaci_by_total"):
+            _, dev = _build(gfa, counts, True)
+    assert g.edge_adj() is None
+    for ct in host[0]:
+        assert torch.equal(host[0][ct].engine.shards[0], dev[0][ct].engine.shards[0]), ct
+    assert list(host[1].paths_len.items()) == list(dev[1].paths_len.items())
+    assert [type(t) for t in dev[1].item_tables] == [SlabbedItemTable] * 3
+    for h, d in zip(host[1].item_tables, dev[1].item_tables):
+        np.testing.assert_array_equal(h.items, d.items)
+    got = runtime.spans()
+    assert [r.name for r in got].count("build.parse") == 0
+    assert [r.name for r in got].count("build.tokenize") == 3
+    (top,) = [r for r in got if r.name == "abaci_by_total"]
+    assert {k: top.counts[k] for k in ("node_slabs_on_device", "edge_slabs", "edge_slabs_on_device")} == {
+        "node_slabs_on_device": 0, "edge_slabs": 3, "edge_slabs_on_device": 0}
     runtime.reset_spans()
 
 
 def test_route_engages_only_where_it_applies(graphs, monkeypatch):  # noqa: F811
     from panacus_torch import runtime
     from panacus_torch.gfa import GraphStorage
-    from panacus_torch.utils import CountType
 
     g = GraphStorage(str(graphs / "dryrun.gfa"), index_edges=False)
     card, cpu = (torch.device("cuda", 0),), (torch.device("cpu"),)
-    node, edge = [CountType.NODE, CountType.BP], [CountType.NODE, CountType.EDGE]
     on = stream.parse_on_device
-    assert on(node, card, False, g.identity_names)
-    assert on(node, card, False)  # the broker, before the index knows the names
-    assert not on(edge, card, False, g.identity_names)
-    assert not on(node, cpu, False, g.identity_names)
-    assert not on(node, card * 2, False, g.identity_names)
-    assert not on(node, card, True, g.identity_names)
+    assert on(card, False, g.identity_names)  # whatever the build counts
+    assert on(card, False)  # the broker, before the index knows the names
+    assert not on(cpu, False, g.identity_names)
+    assert not on(card * 2, False, g.identity_names)
+    assert not on(card, True, g.identity_names)
     g._int_name_mode = "sorted"
-    assert not on(node, card, False, g.identity_names)
+    assert not on(card, False, g.identity_names)
     monkeypatch.setattr(runtime, "_world", (0, 2), raising=False)
     monkeypatch.setattr(stream, "world", lambda: (0, 2))
-    assert not on(node, card, False)
+    assert not on(card, False)
 
 
 def _malformed(graphs, tmp_path):  # noqa: F811
@@ -331,6 +415,41 @@ def test_malformed_step_list_returns_none(graphs, tmp_path, monkeypatch):  # noq
     assert len(discarded) == 1 and discarded[0]._M_host is None
 
 
+def _without_an_l_line(graphs, tmp_path):  # noqa: F811
+    """The dryrun graph less the L line of its first P line's first pair of
+    steps (either way round)."""
+    lines = (graphs / "dryrun.gfa").read_text().splitlines()
+    a, b = next(l for l in lines if l.startswith("P\t")).split("\t")[2].split(",")[:2]
+    flip = {"+": "-", "-": "+"}
+    gone = {("L", a[:-1], a[-1], b[:-1], b[-1]), ("L", b[:-1], flip[b[-1]], a[:-1], flip[a[-1]])}
+    keep = [l for l in lines if tuple(l.split("\t")[:5]) not in gone]
+    assert len(keep) == len(lines) - 1
+    out = tmp_path / "no_l_line.gfa"
+    out.write_text("\n".join(keep) + "\n")
+    return out
+
+
+def test_pair_without_l_line_takes_the_classic_path(graphs, tmp_path, monkeypatch):  # noqa: F811
+    """A path walks a pair of steps that no L line holds: the route drops
+    both streams and returns None, and the CLI fails as the host's route
+    fails."""
+    discarded = []
+    real = MembershipStream.discard
+    monkeypatch.setattr(MembershipStream, "discard", lambda self: (discarded.append(self), real(self)))
+    gfa = _without_an_l_line(graphs, tmp_path)
+    _, res = _build(gfa, ("node", "bp", "edge"), True)
+    assert res is None and len(discarded) == 2
+    errors = []
+    for forced in (False, True):
+        with pytest.MonkeyPatch.context() as mp:
+            if forced:
+                mp.setattr(stream, "parse_on_device", lambda *a: True)
+            with pytest.raises(ValueError, match="unknown edge") as e:
+                torch_cli(["histgrowth", "-c", "all", "-H", str(gfa)], devices=(torch.device("cpu"),))
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
+
+
 def _body(out: str) -> str:
     return "".join(l for l in out.splitlines(True) if not l.startswith("#"))
 
@@ -339,9 +458,12 @@ CLI = [
     ["histgrowth", "-c", "node", "-H", "-q", "0,0.5,1", "-l", "0,1,2"],
     ["histgrowth", "-c", "bp", "-S", "-a"],
     ["histgrowth", "-c", "node", "-g", "{groups}"],
+    ["histgrowth", "-c", "all", "-H", "-q", "0,0.5,1", "-l", "0,1,2"],
+    ["histgrowth", "-c", "edge", "-g", "{groups}"],
     ["info", "-S"],
     ["table", "-S"],
     ["table", "-c", "bp", "-g", "{groups}"],
+    ["table", "-c", "edge", "-S"],
 ]
 
 
@@ -469,8 +591,8 @@ JOBLESS = {
 
 def _no_job(graphs, tmp_path, monkeypatch, capsys, caplog, name):
     """With the card's device forced to the CPU, `-c node` starts one job and
-    its build takes it; -c all, -c edge, a subset, an exclude and names
-    other than 1..n start none."""
+    its build takes it, and so do -c all and -c edge; a subset, an exclude
+    and names other than 1..n start none."""
     monkeypatch.setenv("PANACUS_TORCH_DEVICE", "cpu")
     monkeypatch.setattr(stream, "_parses_on", lambda device: True)
     jobs = _Jobs(monkeypatch)
@@ -496,21 +618,23 @@ def _no_job(graphs, tmp_path, monkeypatch, capsys, caplog, name):
     argv = [a.format(subset=graphs / "subset.bed", exclude=graphs / "exclude.bed")
             for a in JOBLESS[name]]
     _run(argv + [str(gfa)], capsys)
-    assert len(jobs.made) == 1
+    starts = name in ("all", "edge")  # the edge rows parse on the card too
+    assert len(jobs.made) == len(jobs.taken) == 1 + starts
 
 
 TSVS = {
     "histgrowth_node": ["histgrowth", "-c", "node", "-H", "-q", "0,0.5,1", "-l", "0,1,2"],
     "histgrowth_bp": ["histgrowth", "-c", "bp", "-S", "-a"],
+    "histgrowth_all": ["histgrowth", "-c", "all", "-H", "-q", "0,0.5,1", "-l", "0,1,2"],
     "similarity_node": ["similarity", "-c", "node", "-H"],
     "info": ["info", "-S"],
 }
 
 
 def _tsv(graphs, tmp_path, monkeypatch, capsys, caplog, name):
-    """The CLI with the card's device forced to the CPU: each node and bp
-    build takes the index's upload and parses from it (no bail to the
-    classic itemizer), and the TSV equals panacus_tpu's."""
+    """The CLI with the card's device forced to the CPU: each build takes
+    the index's upload and parses from it (no bail to the classic
+    itemizer), and the TSV equals panacus_tpu's."""
     pytest.importorskip("jax")
     from panacus_torch import broker
     from panacus_tpu.cli import run_cli as jax_cli
@@ -527,9 +651,8 @@ def _tsv(graphs, tmp_path, monkeypatch, capsys, caplog, name):
         with caplog.at_level(logging.INFO, logger="panacus"):
             caplog.clear()
             got = _run(argv, capsys)
-        early = "step lists parsed on the device" in caplog.text
-        assert early == (name != "info")  # info counts edges
-        assert len(jobs.taken) == len(jobs.made) == (1 if early else 0)
+        assert "step lists parsed on the device" in caplog.text
+        assert len(jobs.taken) == len(jobs.made) == 1
         jobs.made.clear()
         jobs.taken.clear()
         assert jax_cli(argv) == 0

@@ -1,13 +1,16 @@
-"""pt_parse_pack and the streamed build's device route on the card.
+"""pt_parse_pack, pt_parse_pack_edges and the streamed build's device route
+on the card.
 
-The kernel of csrc/parse.cu against its plain version
-(ops/parse_kernels.parse_pack_ref) on the step lists of tests/parse_cases.py
-and on random lists whose tokens straddle its windows, each between bytes
-of other fields: M and every sum equal where every token is good, the error
-slot equal where one is not. The route on cuda:0 against the route on the
-CPU (the plain parse) and the host tokenizer's build; a malformed step list
-takes the classic path with the CPU's TSVs; a launch the card refuses
-raises. The upload that the index starts (parse_kernels.StepUpload), from
+The kernels of csrc/parse.cu against their plain versions
+(ops/parse_kernels.parse_pack_ref, parse_pack_edges_ref) on the step lists
+of tests/parse_cases.py (and its edge cases for the edge kernel) and on
+random lists whose tokens straddle their windows, each between bytes of
+other fields: M and every sum equal where every token (and pair) is good,
+the error slot equal where one is not. The route on cuda:0 against the
+route on the CPU (the plain parses) and the host tokenizer's build, for
+node and bp, -c all and -c edge; a malformed step list takes the classic
+path with the CPU's TSVs, and so does a pair of steps with no L line; a
+launch the card refuses raises. The upload that the index starts (parse_kernels.StepUpload), from
 the plain map and from gz input, gives the same M, counts and error slot as
 the one copy of the step lists; a malformed list still bails; every
 command joins its upload, and the counts of the upload read 1 and 1. All
@@ -72,6 +75,41 @@ def test_kernel_equals_plain_on_random_pieces(card, seed):
     assert torch.equal(dM, M)
 
 
+def _both_edges(pieces, missing, card, seed=0):
+    """The edge M and error slot of the kernel and of the plain version."""
+    adj = pc.adjacency(pieces, missing, seed)
+    text, descs = pc.layout(pieces, seed)
+    M, err = pc.edge_outputs(adj[2])
+    parse_kernels.parse_pack_edges(text, descs, M, *pc.edge_tensors(adj), pc.N_ITEMS, err)
+    dM, derr = pc.edge_outputs(adj[2], card)
+    before = kernels.launches["pt_parse_pack_edges"]
+    parse_kernels.parse_pack_edges(
+        text.to(card), descs.to(card), dM, *pc.edge_tensors(adj, card), pc.N_ITEMS, derr)
+    torch.cuda.synchronize()
+    assert kernels.launches["pt_parse_pack_edges"] == before + 1
+    return (err, M), (derr.cpu(), dM.cpu())
+
+
+EDGE_CASES = {**{k: (v[0], []) for k, v in pc.CASES.items()}, **pc.EDGE_CASES}
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_CASES))
+def test_edge_kernel_equals_plain_on_the_cases(card, name):
+    pieces, missing = EDGE_CASES[name]
+    (err, M), (derr, dM) = _both_edges(pieces, missing, card)
+    assert int(derr[0]) == int(err[0]) == pc.failing_span(pieces, missing)
+    if err[0] == parse_kernels.ERR_NONE:
+        assert torch.equal(dM, M)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_edge_kernel_equals_plain_on_random_pieces(card, seed):
+    pieces = pc.random_pieces(np.random.default_rng(seed), 300, 3000)
+    (err, M), (derr, dM) = _both_edges(pieces, [], card, seed)
+    assert int(err[0]) == int(derr[0]) == parse_kernels.ERR_NONE
+    assert torch.equal(dM, M)
+
+
 def test_refused_launch_raises(card):
     """An empty text asks for a grid of no blocks: the card refuses the
     launch and the wrapper raises."""
@@ -89,32 +127,63 @@ def graph(tmp_path_factory):
     return gfa
 
 
-def _build(gfa, device, forced=False):
+NODE_BP = ("node", "bp")
+
+
+def _build(gfa, device, forced=False, counts=NODE_BP):
     from panacus_torch.gfa import GraphStorage
     from panacus_torch.mask import GraphMask, GraphMaskParameters
     from panacus_torch.utils import CountType
 
-    g = GraphStorage(str(gfa), index_edges=False)
+    g = GraphStorage(str(gfa), index_edges="edge" in counts)
     mask = GraphMask.from_datamgr(GraphMaskParameters(groupby_haplotype=True), g)
     with pytest.MonkeyPatch.context() as mp:
         if forced:
             mp.setattr(stream, "parse_on_device", lambda *a: True)
-        return stream.streamed_total_abaci(g, mask, [CountType.NODE, CountType.BP], (device,))
+        cts = [CountType[c.upper()] for c in counts]
+        return stream.streamed_total_abaci(g, mask, cts, (device,))
 
 
-def test_route_on_the_card_equals_the_cpu(card, graph):
+@pytest.mark.parametrize("counts", [NODE_BP, ("node", "bp", "edge"), ("edge",)], ids="+".join)
+def test_route_on_the_card_equals_the_cpu(card, graph, counts):
     """make_graph at 200,000 nodes, 70 paths (3 slabs, about 9 MB of steps)
-    in one launch: M, paths_len and the node table on the card equal the
-    plain parse's and the host tokenizer's."""
-    before = kernels.launches["pt_parse_pack"]
-    got = _build(graph, card)
-    assert kernels.launches["pt_parse_pack"] - before == 1
-    assert isinstance(got[1].item_tables[0], stream.LazyNodeTable)
-    for want in (_build(graph, torch.device("cpu"), forced=True), _build(graph, torch.device("cpu"))):
+    in one launch a pass: the node and edge M, paths_len and the item
+    tables on the card equal the plain parses' and the host tokenizer's."""
+    before = {k: kernels.launches[k] for k in ("pt_parse_pack", "pt_parse_pack_edges")}
+    got = _build(graph, card, counts=counts)
+    assert {k: kernels.launches[k] - n for k, n in before.items()} == {
+        "pt_parse_pack": int("node" in counts), "pt_parse_pack_edges": int("edge" in counts)}
+    for table, ct in zip(got[1].item_tables, counts):
+        lazy = stream.LazyParsedEdgeTable if ct == "edge" else stream.LazyNodeTable
+        assert type(table) is lazy, ct
+    cpu = torch.device("cpu")
+    for want in (_build(graph, cpu, forced=True, counts=counts), _build(graph, cpu, counts=counts)):
         for ct in want[0]:
             assert torch.equal(got[0][ct].engine.shards[0].cpu(), want[0][ct].engine.shards[0]), ct
         assert list(got[1].paths_len.items()) == list(want[1].paths_len.items())
-        np.testing.assert_array_equal(got[1].item_tables[0].items, want[1].item_tables[0].items)
+        for mine, theirs in zip(got[1].item_tables, want[1].item_tables):
+            np.testing.assert_array_equal(mine.items, theirs.items)
+
+
+def test_pair_without_l_line_bails_on_the_card(card, graph, tmp_path):
+    """The graph less the L line of its first path's first pair of steps:
+    the edge kernel finds the pair, the route returns None, and the CLI
+    fails on the card as on the CPU."""
+    lines = graph.read_text().splitlines()
+    a, b = next(l for l in lines if l.startswith("P\t")).split("\t")[2].split(",")[:2]
+    flip = {"+": "-", "-": "+"}
+    gone = {("L", a[:-1], a[-1], b[:-1], b[-1]), ("L", b[:-1], flip[b[-1]], a[:-1], flip[a[-1]])}
+    gfa = tmp_path / "no_l_line.gfa"
+    gfa.write_text("\n".join(l for l in lines if tuple(l.split("\t")[:5]) not in gone) + "\n")
+    before = kernels.launches["pt_parse_pack_edges"]
+    assert _build(gfa, card, counts=("node", "bp", "edge")) is None
+    assert kernels.launches["pt_parse_pack_edges"] == before + 1
+    errors = []
+    for dev in (card, torch.device("cpu")):
+        with pytest.raises(ValueError, match="unknown edge") as e:
+            torch_cli(["histgrowth", "-c", "all", "-H", str(gfa)], devices=(dev,))
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
 
 
 def _body(out: str) -> str:
@@ -124,7 +193,7 @@ def _body(out: str) -> str:
 def test_malformed_graph_takes_the_classic_path(card, graph, tmp_path, capsys, monkeypatch, caplog):
     """A ',' after the last step of one P line: the kernel finds it, the
     build goes the classic way, and the TSVs equal the CPU's (info counts
-    edges, so its build stays on the host)."""
+    edges, and its build takes the route too)."""
     import logging
 
     text = graph.read_bytes()
@@ -140,7 +209,7 @@ def test_malformed_graph_takes_the_classic_path(card, graph, tmp_path, capsys, m
                 caplog.clear()
                 assert torch_cli(argv + [str(bad)]) == 0
             out = _body(capsys.readouterr().out)
-            if dev == "cuda" and argv[0] != "info":  # info counts edges too
+            if dev == "cuda":
                 assert "parsed on the device" in caplog.text
                 assert kernels.launches["pt_parse_pack"] > before
             want = out if want is None else want

@@ -8,7 +8,7 @@ wait and finalize, and the phases, each under its parent, all with one
 command id, their counts filled; then a `-c node` with the device route
 forced onto the CPU adds the step-list upload on its worker thread
 (`index.upload`), the build's stage, parse and wait, and the upload's
-counts; a `similarity` formats its table in `write.format` under
+counts; a `-c all` on that route counts every edge slab on the device; a `similarity` formats its table in `write.format` under
 `cli.write`; a `.gfa.gz` inflates in `index.inflate` under `index`, on
 either route, and a plain file opens no such span. With no profiler a span
 records nothing and opens no record_function, while phase_timer still
@@ -169,8 +169,9 @@ def test_a_traced_command_records_every_span(gfa, monkeypatch):
     assert one("abaci_by_total") == {
         "edge_slabs": N_SLABS,
         "edge_slabs_repacked": N_SLABS,
+        "edge_slabs_on_device": 0,  # the route needs a card: packed on the host
         "node_slabs": N_SLABS,
-        "node_slabs_on_device": 0,  # -c all: the node rows are packed on the host
+        "node_slabs_on_device": 0,
         "uploads": 0,
         "uploads_early": 0,
     }
@@ -199,6 +200,31 @@ def test_a_traced_command_records_every_span(gfa, monkeypatch):
         "uploads_early": 1,
     }
     assert one("cli.write") == {"bytes": len(text)}
+
+
+def test_a_device_route_build_counts_its_edge_slabs(gfa, monkeypatch):
+    """-c all with the device route forced onto the CPU: every edge slab's
+    rows come from the card's pass (`edge_slabs_on_device` equals
+    `edge_slabs`, none repacked), with no host tokenize or edge pack, and
+    a parse and a wait for the node rows and for the edge rows."""
+    from panacus_torch import stream
+
+    monkeypatch.setattr(stream, "_parses_on", lambda device: True)
+    _profiled(gfa)
+    got = runtime.spans()
+    names = [r.name for r in got]
+    assert not {"build.tokenize", "build.pack", "build.edge_pack"} & set(names)
+    assert names.count("build.parse") == names.count("build.wait") == 2
+    (top,) = [r for r in got if r.name == "abaci_by_total"]
+    assert top.counts == {
+        "edge_slabs": N_SLABS,
+        "edge_slabs_repacked": 0,
+        "edge_slabs_on_device": N_SLABS,
+        "node_slabs": N_SLABS,
+        "node_slabs_on_device": N_SLABS,
+        "uploads": 1,
+        "uploads_early": 1,
+    }
 
 
 @pytest.mark.parametrize("route", ["libdeflate", "zlib"])
